@@ -1,6 +1,6 @@
-"""cytvdn_tpu — TPU-native total-variation denoising for 3D/4D microscopy data.
+"""cytvdn_tpu — total-variation denoising for 3D/4D microscopy data on JAX.
 
-A brand-new JAX/XLA/Pallas/shard_map framework with the capabilities of the
+A JAX/XLA/shard_map framework with the capabilities of the
 cyTVDN reference (proximal anisotropic / half-isotropic TV denoising of 3D
 hyperspectral EELS cubes and 4D-STEM datacubes via the Jia-Zhao
 dual-accumulator algorithm with optional FISTA acceleration).
@@ -10,7 +10,8 @@ reference cyTVDN/cyTVDN.py:19,250,438):
 
 - :func:`denoise3D`  — 3D anisotropic TV denoising
 - :func:`denoise4D`  — 4D anisotropic / half-isotropic TV denoising
-- :func:`check_memory` — memory-requirement advisor (HBM + host RAM aware)
+- :func:`check_memory` — memory-requirement advisor (device memory + host
+  RAM aware)
 - :class:`BCMode` — boundary-condition enum (periodic / mirror / Jia-Zhao)
 """
 

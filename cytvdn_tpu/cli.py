@@ -1,10 +1,10 @@
 """Command-line launcher — the reference's ``cyTVMPI`` console script
-rebuilt for the TPU runtime (reference cyTVDN/mpi.py:27-501, flag surface
+rebuilt on JAX (reference cyTVDN/mpi.py:27-501, flag surface
 mpi.py:47-76).
 
 Same flags: ``-i/--input``, ``-o/--output``, ``-d/--dimensions``,
 ``-f/--fista``, ``-n/--niterations`` (one value, or two for the hybrid
-schedule), ``-L/--lambda``, ``-m/--mu``, ``-v/--verbose``. TPU additions:
+schedule), ``-L/--lambda``, ``-m/--mu``, ``-v/--verbose``. Additions:
 ``--shard`` (device-mesh tiling, 'auto' = edge-minimizing partitioner over
 the scan axes like the reference's mpi.py:130-153), ``--backend``,
 ``--bc-mode``, ``--stop`` (the stopping criterion the reference MPI path
@@ -37,7 +37,8 @@ def str2bool(v) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cytv",
-        description="TPU-native TV denoising of 3D/4D microscopy datacubes.",
+        description="TV denoising of 3D/4D microscopy datacubes on JAX "
+                    "devices.",
     )
     p.add_argument("-i", "--input", type=os.path.abspath, required=True,
                    help="input file (.h5/.emd/.dm3/.dm4/.npy)")
@@ -71,7 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iso-q", type=str2bool, default=None,
                    help="half-isotropic on axes 2,3 (4D only)")
     p.add_argument("--backend", default="auto",
-                   choices=("auto", "jax", "pallas", "cpp"))
+                   choices=("auto", "jax", "pallas", "cpp"),
+                   help="auto: the hand-written GPU step where it covers "
+                        "the run on an NVIDIA GPU, else the XLA ops path; "
+                        "jax: the XLA ops path; pallas: the GPU step, or "
+                        "an error; cpp: native C++/OpenMP kernels on the "
+                        "CPU host")
     p.add_argument("--shard", default=None,
                    help="'auto' or comma-separated per-axis tile counts "
                         "(e.g. 2,4,1,1) to run over a device mesh")
@@ -88,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-of-core", type=int, default=0, metavar="N_SLABS",
                    help="stream the cube through the device in N slabs with "
                         "host-resident state (for cubes whose state exceeds "
-                        "HBM; Jia-Zhao anisotropic float32 only)")
+                        "device memory; Jia-Zhao anisotropic float32 only)")
     p.add_argument("--temporal", type=int, default=1, metavar="K",
                    help="with --out-of-core: K iterations per slab "
                         "residency (temporal blocking; cuts host-device "
@@ -96,10 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "granularity)")
     p.add_argument("--lossy-duals", action="store_true",
                    help="LOSSY opt-in: store the FISTA shadow duals as "
-                        "bfloat16 in HBM (~19%% less streaming traffic; "
-                        "measured recon drift ~6.8e-4 rel-L2 vs exact "
-                        "float32 — 68x the 1e-5 reference-parity budget). "
-                        "Single-device streaming runs only")
+                        "bfloat16 (half their memory traffic; the recon "
+                        "drifts far beyond the 1e-5 reference-parity "
+                        "budget). Jia-Zhao anisotropic float32 FISTA only")
     return p
 
 
@@ -149,12 +154,14 @@ def main(argv=None) -> int:
               "that supplies it)", file=sys.stderr)
         return 2
 
-    # join the multi-host runtime first (no-op on a single host; on a pod
-    # every host runs this same command — the analog of the reference's
-    # one-MPI-rank-per-node launch, reference cori_MPI_example.sh:44)
+    # join the multi-host runtime first (no-op on a single host; on a
+    # cluster every host runs this same command — the analog of the
+    # reference's one-MPI-rank-per-node launch, cori_MPI_example.sh:44)
     from cytvdn_tpu.parallel.distributed import init_distributed
+    from cytvdn_tpu.utils.cache import enable_compile_cache
 
     multihost = init_distributed()
+    enable_compile_cache()
     proc, n_proc = 0, 1
     if multihost:
         import jax
@@ -191,7 +198,7 @@ def main(argv=None) -> int:
     lazy = ((args.shard and not args.out_of_core) or ooc_multihost)
     if lazy and args.dtype == "float32":
         # sharded float32 runs read per-shard blocks lazily (per-host on a
-        # pod — no process ever loads the full cube, like the reference's
+        # cluster — no process ever loads the full cube, like the reference's
         # memmap/MPI-IO opens, mpi.py:93-124); peek only at the shape here
         with open_input(args.input) as h:
             shape, in_dtype = h.shape, h.dtype
@@ -273,7 +280,7 @@ def main(argv=None) -> int:
         shard_w = 1
         if args.shard:
             # out-of-core sharding: each resident slab split over W local
-            # devices on axis 1 (the v5e-16 config-5 deployment shape)
+            # devices on axis 1 (the config-5 deployment shape)
             try:
                 shard_w = int(args.shard) if args.shard != "auto" else 0
             except ValueError:
@@ -328,7 +335,7 @@ def main(argv=None) -> int:
             # on a filesystem every process can see (the reference's
             # MPI-IO precondition, mpi.py:115,447), each process
             # region-writes its OWN rows into the one EMD file — zero
-            # bytes over DCN. Otherwise fall back to streaming the rows
+            # bytes over the network. Otherwise fall back to streaming the rows
             # to process 0 in SLAB-SIZED chunks (each padded to a fixed
             # row count so the allgather shapes agree) — no process ever
             # materializes the full cube (the config-5 recon is ~64 GiB)

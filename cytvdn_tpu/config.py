@@ -39,10 +39,15 @@ class BCMode(enum.IntEnum):
 class Backend(enum.Enum):
     """Compute backend for the iteration body.
 
-    - ``AUTO``: pallas on TPU, jax elsewhere.
-    - ``JAX``: pure jax.numpy ops (runs anywhere; the executable spec).
-    - ``PALLAS``: fused Pallas TPU stencil kernels (fastest on TPU).
-    - ``CPP``: native C++/OpenMP host kernels (CPU only, via ctypes).
+    - ``AUTO``: on an NVIDIA GPU, the hand-written two-pass step
+      (``kernels/step.py``, Pallas on the Triton route) where it covers the
+      run — float32, Jia-Zhao, anisotropic, exact duals, one device — and
+      the XLA ops path (``ops/stencil.py``) otherwise; on the CPU, the ops
+      path.
+    - ``JAX``: the XLA ops path on whatever device JAX runs on.
+    - ``PALLAS``: the GPU step, demanded; raises without a GPU or for a
+      configuration it does not cover.
+    - ``CPP``: native C++/OpenMP host kernels (CPU hosts only, via ctypes).
     """
 
     AUTO = "auto"
@@ -56,7 +61,8 @@ class SolverOptions:
     """Static solver configuration (hashable: used as a jit static arg).
 
     Mirrors the reference driver's keyword surface
-    (reference cyTVDN/cyTVDN.py:19-31, 250-260) plus TPU-specific knobs.
+    (reference cyTVDN/cyTVDN.py:19-31, 250-260) plus the mesh and lossy
+    options.
     """
 
     ndim: int
@@ -74,59 +80,20 @@ class SolverOptions:
     # "Improving FISTA" literature). Off by default to preserve exact
     # reference parity of the momentum schedule.
     fista_restart: bool = False
-    # Temporal blocking: run iterations in PAIRS through the K=2 fused
-    # kernel (two full iterations per HBM pass — ~1.8x less memory
-    # traffic) whenever eligible: single-device Jia-Zhao anisotropic
-    # float32 without per-iteration early stop / MSE / adaptive restart.
-    # Results are bit-identical to the K=1 kernel; set False to force
-    # one-iteration-per-pass execution.
-    temporal_pairs: bool = True
-    # Deeper temporal blocking (K >= 3 iterations per HBM pass) through
-    # the generalized single-strip staircase kernel (kernels/kstep.py):
-    # engages on single-device Jia-Zhao anisotropic float32 runs whose
-    # work layout keeps the whole axis 1 in one block (every 3D
-    # benchmark geometry) without early stop / MSE. Bit-identical to
-    # K=1; per-iteration HBM traffic drops to ~(4n+3)/K traversals.
-    # ``temporal_kstep=False`` caps temporal blocking at the K=2 pair
-    # kernel (the VMEM-fallback ladder flips this knob first);
-    # ``temporal_k`` pins a specific depth (None = largest viable of
-    # kernels/kstep.py::KSTEP_CANDIDATES).
-    temporal_kstep: bool = True
-    temporal_k: Optional[int] = None
-    # VMEM-resident whole-run execution: when the entire solver state fits
-    # the chip's VMEM (small cubes, e.g. 64x64x512 3D), run ALL iterations
-    # inside one Pallas launch with state held on-chip — HBM traffic for
-    # the whole run is one read + one write. Bit-identical to the
-    # streaming kernels; applies to fresh single-device Jia-Zhao
-    # anisotropic runs without early stop/MSE. Set False to force the
-    # streaming paths.
-    vmem_resident: bool = True
     # Data axes split across the device mesh, e.g. (0, 1). Empty = single
     # device. The reference's MPI runtime always splits axes (0, 1)
     # (reference cyTVDN/mpi.py:130-214); we additionally allow splitting the
     # Q/spectral axes (SURVEY.md §2 parallelism inventory).
     mesh_axes: Tuple[int, ...] = ()
     # LOSSY opt-in (beyond the reference): store the FISTA shadow duals
-    # (``d``) in bfloat16 in HBM, compute in float32. Cuts streaming
-    # FISTA HBM traffic ~19% (the d arrays' share of the pair kernel's
-    # ~42 B/voxel-iteration). NOT bit-exact vs an exact run: measured
-    # reconstruction drift saturates at ~6.8e-4 rel-L2
-    # (EXPERIMENT_BF16_DUALS.json) — 68x over the 1e-5 reference-parity
+    # (``d``) in bfloat16, compute in float32. Halves the d arrays' bytes
+    # in device memory, host RAM and transfers. NOT bit-exact vs an exact
+    # run: the recon drifts by far more than the 1e-5 reference-parity
     # budget, which is why this can never be a default. Covers float32
-    # Jia-Zhao anisotropic FISTA runs: single-device streaming, sharded
-    # meshes (lossy mesh ≡ lossy single device bitwise — seam d slabs
-    # widen exactly and seam recomputes round on the same cadence),
-    # out-of-core and multihost (bf16 duals also halve the d arrays'
-    # host RAM + PCIe/DCN bytes there).
+    # Jia-Zhao anisotropic FISTA runs: single-device, sharded meshes
+    # (lossy mesh ≡ lossy single device bitwise), out-of-core and
+    # multihost.
     lossy_duals: bool = False
-    # Upper bound (bytes) on the pair kernel's per-block VMEM footprint,
-    # shrinking its strips below the budget model's pick. None = auto
-    # (the calibrated ~82-buffer model, kernels/temporal.py::pair_plan).
-    # Set automatically by the VMEM-miscalibration fallback ladder
-    # (solver/engine.py::vmem_fallback) when Mosaic's actual accounting
-    # exceeds the model for a shape (measured: 4D FISTA at
-    # (128,128,64,64)); results are bit-identical at any cap.
-    pair_block_cap: Optional[int] = None
 
     def __post_init__(self):
         # coerce string spellings ("jax", 2) to the enums: a bare string

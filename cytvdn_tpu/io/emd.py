@@ -8,8 +8,9 @@ the reference's per-rank ``write_direct`` with ``dest_sel`` region
 selections (mpi.py:493-497). For multi-host runs the concurrent-writer
 path is SHIPPED: :func:`write_emd_rows_multihost` early-allocates the
 contiguous datacube and every process pwrites its own rows at the
-raw byte offset — truly concurrent, no HDF5 writer lock (measured 3.5-37x
-over gather/ring schemes, MULTIHOST_OOC.json output_bench). Virtual-dataset
+raw byte offset — truly concurrent, no HDF5 writer lock
+(``tools/bench_multihost_output.py`` times it against the gather and
+ring schemes). Virtual-dataset
 and solid-stitch part writers cover the sharded jax.Array surface.
 """
 
@@ -126,7 +127,8 @@ def write_emd_regions(
     return path
 
 
-#: outputs up to this size are gathered over DCN and written by process 0
+#: outputs up to this size are gathered over the network and written by
+#: process 0
 #: alone (no part files, NO shared filesystem needed — each device briefly
 #: holds the full cube)
 _GATHER_MAX_BYTES = 4 << 30
@@ -140,7 +142,7 @@ _SOLID_STITCH_MAX_BYTES = 8 << 30
 
 def _gather_replicated(array):
     """Reshard a global array to fully-replicated (allgather over
-    ICI/DCN) and return it as one host ndarray."""
+    the interconnect) and return it as one host ndarray."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -158,8 +160,8 @@ def write_emd_sharded(path: str, array, stitch: str = "auto") -> str:
     - Single process: each addressable shard is written as a region into
       one file (the analog of the reference's per-rank ``write_direct``
       region writes, mpi.py:493-497).
-    - Multi-process (TPU pod), ``stitch="auto"`` and output ≤
-      ``_GATHER_MAX_BYTES``: the array is replicated over DCN and process
+    - Multi-process (several hosts), ``stitch="auto"`` and output ≤
+      ``_GATHER_MAX_BYTES``: the array is replicated over the network and process
       0 writes ONE file — no part files, no shared-filesystem
       requirement.
     - Multi-process, larger outputs (or explicit ``stitch=``): HDF5
@@ -505,9 +507,8 @@ def write_emd_rows_gathered(path: str, global_shape, dtype,
     other processes (which still must iterate the collectives).
 
     This is the one implementation of the gather scheme; the CLI and
-    tools/bench_multihost_output.py both call it (a measured 4.4-10.5x
-    slower than ``write_emd_rows_multihost`` on a shared FS — see
-    MULTIHOST_OOC.json output_schemes)."""
+    tools/bench_multihost_output.py both call it (slower than
+    ``write_emd_rows_multihost`` on a shared FS)."""
     import jax
     from jax.experimental import multihost_utils
 

@@ -1,15 +1,5 @@
-from cytvdn_tpu.kernels.fused import (
-    fused_iteration,
-    fused_supported,
-)
-from cytvdn_tpu.kernels.temporal import (
-    fused_pair_iteration,
-    pair_supported,
-)
+"""Hand-written GPU kernels (Pallas on the Triton route)."""
 
-__all__ = [
-    "fused_iteration",
-    "fused_supported",
-    "fused_pair_iteration",
-    "pair_supported",
-]
+from cytvdn_tpu.kernels.step import covers, gpu_step
+
+__all__ = ["covers", "gpu_step"]

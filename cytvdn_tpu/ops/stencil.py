@@ -16,7 +16,7 @@ reference's in-place Cython/OpenMP kernels:
 - :func:`sum_square_error`          ⇔ ``sum_square_error_{3D,4D}``
   (reference cyTVDN/utils.pyx:14-49)
 
-Design notes (TPU-first):
+Design notes:
 
 - Everything is functional: updated arrays are returned, never mutated.
   Under ``jit`` with buffer donation XLA performs the updates in place.

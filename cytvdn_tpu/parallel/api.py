@@ -39,7 +39,8 @@ def denoise_sharded(
     """Denoise a datacube sharded over a device mesh.
 
     Returns a dict with ``recon``, ``b_norm``, ``delta``,
-    ``iterations_run`` [, ``mse``] as numpy arrays. Supports everything the
+    ``iterations_run`` [, ``mse``] as numpy arrays, and ``devices``: the
+    ids of this process's devices that hold a shard of the result. Supports everything the
     single-device path does — FISTA, hybrid schedules, early stopping,
     MSE tracking, all BC modes, half-isotropic pairs, checkpoint/resume,
     live progress — none of which the reference's MPI runtime implements
@@ -82,23 +83,18 @@ def denoise_sharded(
 
     if lazy:
         # lazy source: each device's shard is read directly from the file
-        # (per-host on a pod) — no process ever holds the full cube, like
+        # (per-host on a cluster) — no process ever holds the full cube, like
         # the reference's memmap/MPI-IO opens (mpi.py:93-124). Data is cast
         # to float32 as the reference loader does (mpi.py:223-230).
-        # The mesh is resolved BEFORE loading (with the pair-kernel's
-        # axis-0 preference) so blocks are read with their final sharding.
+        # The mesh is resolved BEFORE loading so blocks are read with
+        # their final sharding.
         import jax
 
         from cytvdn_tpu.parallel.multihost import load_sharded_array
-        from cytvdn_tpu.parallel.sharded import (
-            resolve_shard,
-            temporal_mesh_preference,
-        )
+        from cytvdn_tpu.parallel.sharded import resolve_shard
 
         n_dev = len(devices) if devices is not None else len(jax.devices())
-        shard = resolve_shard(
-            shard, in_shape, n_dev,
-            prefer_axis0=temporal_mesh_preference(opts, np.float32))
+        shard = resolve_shard(shard, in_shape, n_dev)
         data_arr = load_sharded_array(datacube, shard, devices,
                                       dtype=np.float32)
         mu = np.asarray(mu, dtype=np.float32)
@@ -185,6 +181,7 @@ def denoise_sharded(
                 cb.close()
 
     recon = out["recon"]
+    devices_used = sorted({s.device.id for s in recon.addressable_shards})
     if getattr(recon, "is_fully_addressable", True):
         recon = np.asarray(recon)
     # else: multihost — no process can hold the global cube; the sharded
@@ -195,6 +192,7 @@ def denoise_sharded(
         "b_norm": np.asarray(out["b_norm"]),
         "delta": np.asarray(out["delta"]),
         "iterations_run": int(out["iterations_run"]),
+        "devices": devices_used,
     }
     if opts.calculate_mse:
         result["mse"] = np.asarray(out["mse"])

@@ -1,10 +1,10 @@
 """Multi-host runtime initialization.
 
 The reference's scale-out entry is ``mpirun``/SLURM launching one MPI rank
-per node (reference cori_MPI_example.sh, mpi.py:31-33); the TPU-native
-equivalent is one Python process per host joined into a global JAX runtime
-over DCN, with the device mesh laid out so halo ``ppermute`` traffic rides
-ICI within a slice.
+per node (reference cori_MPI_example.sh, mpi.py:31-33); the JAX
+equivalent is one Python process per host joined into a global JAX
+runtime. One process drives all the cards of its host (four H100s joined
+by NVLink), so a single-host run needs none of this.
 """
 
 from __future__ import annotations
@@ -21,10 +21,10 @@ def init_distributed(
     """Join the multi-host JAX runtime if this looks like a multi-host
     environment; no-op (returns False) on a single host.
 
-    On Cloud TPU VMs recent JAX auto-initializes from the metadata server,
-    so calling with no arguments is usually right. Explicit coordinator
-    parameters (or the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID environment variables) cover other clusters.
+    The cluster is described by explicit coordinator parameters or the
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    environment variables (``localhost:<port>`` for processes on one
+    machine); with neither, this is a single-process run.
     """
     import jax
 

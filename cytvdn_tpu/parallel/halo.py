@@ -1,5 +1,6 @@
-"""Halo exchange over the device mesh — the TPU-native replacement for the
-reference's MPI ``Isend/Irecv`` face exchange (reference cyTVDN/mpi.py:322-434).
+"""Halo exchange over the device mesh — the replacement for the reference's
+MPI ``Isend/Irecv`` face exchange (reference cyTVDN/mpi.py:322-434). The
+halos are ``lax.ppermute`` collectives, which XLA hands to NCCL on GPUs.
 
 This implements the *corrected* seam scheme verified in SURVEY.md §8.3:
 
@@ -99,165 +100,3 @@ class MeshComm:
 
     def allsum(self, x: Array) -> Array:
         return lax.psum(x, tuple(self.axis_names.values()))
-
-    # -- raw slab exchange (used by the fused-kernel sharded path, which
-    # realizes boundary conditions through halo *values* rather than
-    # masking: see cytvdn_tpu/kernels/fused.py::_make_kernel) -------------
-
-    def shift_from_prev(self, arr: Array, ax: int,
-                        edge_slab: Array) -> Array:
-        """-1 neighbor's last slab of ``arr``; edge shards get
-        ``edge_slab``. Falls back to ``edge_slab`` when ``ax`` is unsplit
-        (the shard edge is then the global edge)."""
-        name, n = self._mesh_info(ax)
-        if name is None or n == 1:
-            return edge_slab
-        received = lax.ppermute(
-            _slab(arr, ax, -1), name, [(i, i + 1) for i in range(n - 1)]
-        )
-        return jnp.where(lax.axis_index(name) == 0, edge_slab, received)
-
-    def shift_from_next(self, arr: Array, ax: int,
-                        edge_slab: Array) -> Array:
-        """+1 neighbor's first slab of ``arr``; edge shards get
-        ``edge_slab``."""
-        name, n = self._mesh_info(ax)
-        if name is None or n == 1:
-            return edge_slab
-        received = lax.ppermute(
-            _slab(arr, ax, 0), name, [(i, i - 1) for i in range(1, n)]
-        )
-        return jnp.where(lax.axis_index(name) == n - 1, edge_slab, received)
-
-    # -- ring halos (periodic BC): the global wrap IS the ring, so no edge
-    # masking — every shard, including the global-edge ones, receives its
-    # ring neighbor's slab (the fused kernel's recompute then produces the
-    # periodic wrap operand exactly) ----------------------------------
-
-    # -- 2-deep bands (used by the temporally-blocked K=2 pair kernel,
-    # kernels/temporal.py: iteration-1 values at shard seams are
-    # recomputed from the neighbor's pre-update state, whose stencil
-    # reaches 2 rows into the neighbor) --------------------------------
-
-    def band_from_prev(self, arr: Array, ax: int) -> Array:
-        """-1 neighbor's LAST TWO slabs of ``arr`` along ``ax`` (ordered
-        [-2, -1]); zeros at the global leading edge (the pair kernel
-        masks edge shards by flag, so the fill is never read)."""
-        name, n = self._mesh_info(ax)
-        band = lax.concatenate(
-            [_slab(arr, ax, -2), _slab(arr, ax, -1)], dimension=ax)
-        if name is None or n == 1:
-            return jnp.zeros_like(band)
-        received = lax.ppermute(
-            band, name, [(i, i + 1) for i in range(n - 1)])
-        return jnp.where(lax.axis_index(name) == 0,
-                         jnp.zeros_like(band), received)
-
-    def band_from_next(self, arr: Array, ax: int) -> Array:
-        """+1 neighbor's FIRST TWO slabs along ``ax`` (ordered [0, 1]);
-        zeros at the global trailing edge."""
-        name, n = self._mesh_info(ax)
-        band = lax.concatenate(
-            [_slab(arr, ax, 0), _slab(arr, ax, 1)], dimension=ax)
-        if name is None or n == 1:
-            return jnp.zeros_like(band)
-        received = lax.ppermute(
-            band, name, [(i, i - 1) for i in range(1, n)])
-        return jnp.where(lax.axis_index(name) == n - 1,
-                         jnp.zeros_like(band), received)
-
-    def pack_exchange_prev(self, pieces, ax: int):
-        """ppermute a LIST of own-slab pieces to the +1 neighbor (i.e.
-        receive the -1 neighbor's pieces) in ONE collective — the pair
-        kernel's halo set would otherwise cost ~20 ppermutes per step.
-        Zeros at the global leading edge (flag-masked by the consumer)."""
-        sizes = [p.shape[ax] for p in pieces]
-        pk = lax.concatenate(pieces, dimension=ax)
-        name, n = self._mesh_info(ax)
-        if name is None or n == 1:
-            out = jnp.zeros_like(pk)
-        else:
-            received = lax.ppermute(
-                pk, name, [(i, i + 1) for i in range(n - 1)])
-            out = jnp.where(lax.axis_index(name) == 0,
-                            jnp.zeros_like(pk), received)
-        outs, off = [], 0
-        for s in sizes:
-            outs.append(lax.slice_in_dim(out, off, off + s, axis=ax))
-            off += s
-        return outs
-
-    def pack_exchange_next(self, pieces, ax: int):
-        """Receive the +1 neighbor's pieces in one collective; zeros at
-        the global trailing edge."""
-        sizes = [p.shape[ax] for p in pieces]
-        pk = lax.concatenate(pieces, dimension=ax)
-        name, n = self._mesh_info(ax)
-        if name is None or n == 1:
-            out = jnp.zeros_like(pk)
-        else:
-            received = lax.ppermute(
-                pk, name, [(i, i - 1) for i in range(1, n)])
-            out = jnp.where(lax.axis_index(name) == n - 1,
-                            jnp.zeros_like(pk), received)
-        outs, off = [], 0
-        for s in sizes:
-            outs.append(lax.slice_in_dim(out, off, off + s, axis=ax))
-            off += s
-        return outs
-
-    def slab_from_prev(self, arr: Array, ax: int, idx: int) -> Array:
-        """-1 neighbor's slab at (its own) index ``idx`` along ``ax``;
-        zeros at the global leading edge (flag-masked by the consumer)."""
-        name, n = self._mesh_info(ax)
-        slab = _slab(arr, ax, idx)
-        if name is None or n == 1:
-            return jnp.zeros_like(slab)
-        received = lax.ppermute(
-            slab, name, [(i, i + 1) for i in range(n - 1)])
-        return jnp.where(lax.axis_index(name) == 0,
-                         jnp.zeros_like(slab), received)
-
-    def slab_from_next(self, arr: Array, ax: int, idx: int) -> Array:
-        """+1 neighbor's slab at index ``idx`` along ``ax``; zeros at the
-        global trailing edge."""
-        name, n = self._mesh_info(ax)
-        slab = _slab(arr, ax, idx)
-        if name is None or n == 1:
-            return jnp.zeros_like(slab)
-        received = lax.ppermute(
-            slab, name, [(i, i - 1) for i in range(1, n)])
-        return jnp.where(lax.axis_index(name) == n - 1,
-                         jnp.zeros_like(slab), received)
-
-    def is_first(self, ax: int):
-        """1.0 on the shard owning the global leading edge of ``ax``."""
-        name, _ = self._mesh_info(ax)
-        if name is None:
-            return jnp.float32(1.0)
-        return (lax.axis_index(name) == 0).astype(jnp.float32)
-
-    def is_last(self, ax: int):
-        name, n = self._mesh_info(ax)
-        if name is None:
-            return jnp.float32(1.0)
-        return (lax.axis_index(name) == n - 1).astype(jnp.float32)
-
-    def ring_from_prev(self, arr: Array, ax: int) -> Array:
-        """Ring -1 neighbor's last slab; own last slab when unsplit (the
-        whole axis lives on-shard, so the wrap is local)."""
-        name, n = self._mesh_info(ax)
-        my_last = _slab(arr, ax, -1)
-        if name is None or n == 1:
-            return my_last
-        return lax.ppermute(my_last, name,
-                            [(i, (i + 1) % n) for i in range(n)])
-
-    def ring_from_next(self, arr: Array, ax: int) -> Array:
-        """Ring +1 neighbor's first slab; own first slab when unsplit."""
-        name, n = self._mesh_info(ax)
-        my_first = _slab(arr, ax, 0)
-        if name is None or n == 1:
-            return my_first
-        return lax.ppermute(my_first, name,
-                            [(i, (i - 1) % n) for i in range(n)])

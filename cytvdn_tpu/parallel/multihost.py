@@ -1,9 +1,9 @@
 """Sharded input loading: build a global device array from per-shard block
-reads — the TPU-native replacement for the reference's parallel-HDF5
+reads — the replacement for the reference's parallel-HDF5
 collective reads (reference cyTVDN/mpi.py:111-118, 233-236).
 
 ``jax.make_array_from_callback`` asks each *process* only for the blocks
-its own devices hold, so on a multi-host pod every host reads only its
+its own devices hold, so on a multi-host cluster every host reads only its
 shards (+ nothing else) from the filesystem; no rank ever materializes the
 full cube — the property the reference gets from memory-mapped/MPI-IO
 opens (mpi.py:93-124).

@@ -6,7 +6,7 @@ scores each by total tile edge length (reference cyTVDN/mpi.py:130-153).
 Here the cost model is the actual number of elements crossing seams per
 iteration: each split axis ``a`` with ``w_a`` tiles contributes
 ``(w_a - 1) · (domain_size / extent_a)`` halo elements per exchanged array —
-minimizing this minimizes the bytes ``ppermute`` moves over ICI.
+minimizing this minimizes the bytes ``ppermute`` moves between devices.
 """
 
 from __future__ import annotations

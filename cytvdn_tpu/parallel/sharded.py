@@ -1,4 +1,4 @@
-"""shard_map solver: the TPU-native replacement for the reference's MPI
+"""shard_map solver: the device-mesh replacement for the reference's MPI
 distributed runtime ``run_MPI`` (reference cyTVDN/mpi.py:27-501).
 
 Differences from the reference, by design:
@@ -10,7 +10,7 @@ Differences from the reference, by design:
   reductions the reference never implemented, README.md:34).
 - Any subset of data axes can be split (the reference splits only the two
   scan axes, mpi.py:357-358); splitting the Q/spectral axes uses the same
-  halo mechanism and enables the 512²×256² north-star config.
+  halo mechanism.
 - Exact seams: see ``cytvdn_tpu/parallel/halo.py`` (SURVEY.md §8.3).
 - Chunked execution + checkpoint/resume work distributed too (``state`` /
   ``i_stop`` / ``keep_state`` mirror ``run_solver``).
@@ -36,39 +36,16 @@ def resolve_shard(
     shard: Union[str, Sequence[int], None],
     shape: Tuple[int, ...],
     n_devices: int,
-    prefer_axis0: bool = False,
 ) -> Tuple[int, ...]:
     """Normalize the ``shard`` argument to a per-data-axis tile-count tuple.
 
     ``'auto'`` chooses a grid over the two scan axes with the
     edge-minimizing partitioner (the reference's policy, mpi.py:130-153).
-    ``prefer_axis0``: when the run is eligible for the temporally-blocked
-    pair kernel (which covers single-axis meshes), a single-axis split
-    is worth far more than the marginal halo-traffic difference of a 2D
-    grid — take ``(N, 1, ...)`` whenever axis 0 tiles evenly with >= 4
-    rows per shard, else ``(1, N, ...)`` when axis 1 tiles.
     """
     ndim = len(shape)
     if shard is None:
         return (1,) * ndim
     if shard == "auto":
-        if prefer_axis0:
-            from cytvdn_tpu.kernels.temporal import pair_hbm_viable
-
-            # single-axis splits unlock the K=2 pair kernel; axis 0
-            # first (cheapest seams), axis 1 as fallback
-            if shape[0] % n_devices == 0 and shape[0] // n_devices >= 4:
-                local = (shape[0] // n_devices,) + tuple(shape[1:])
-                if pair_hbm_viable(local):
-                    return (n_devices,) + (1,) * (ndim - 1)
-            if shape[0] >= 4 and shape[1] % n_devices == 0 \
-                    and shape[1] // n_devices >= 2:
-                local = (shape[0], shape[1] // n_devices) \
-                    + tuple(shape[2:])
-                if pair_hbm_viable(local, halo1=True):
-                    return (1, n_devices) + (1,) * (ndim - 2)
-            # pod-scale shards where the pair program's band state would
-            # not fit HBM: fall through to the 2D grid + K=1 kernel
         # prefer all devices; when the scan axes have no even tiling over
         # that count (e.g. 250×250 on 8 devices), degrade to the largest
         # device count that tiles evenly rather than failing (the reference
@@ -93,27 +70,13 @@ def resolve_shard(
     return shard
 
 
-def temporal_mesh_preference(opts: SolverOptions, dtype) -> bool:
-    """Whether an ``'auto'`` mesh should favor a single-axis split: true
-    when the run is eligible for the temporally-blocked pair kernel
-    (which covers axis-0/axis-1 meshes; ~1.8x per-chip throughput dwarfs
-    the marginal halo-traffic difference of a 2D scan grid)."""
-    from cytvdn_tpu.config import BCMode
-
-    return (
-        opts.temporal_pairs
-        and opts.bc_mode == BCMode.JIA_ZHAO
-        and not (opts.isotropic_R or opts.isotropic_Q)
-        and not opts.fista_restart
-        and np.dtype(dtype) == np.float32
-    )
-
-
 def make_mesh(shard: Sequence[int], devices=None) -> Tuple[Mesh, Dict[int, str]]:
     """Build a Mesh whose axes correspond to the split data axes.
 
     Returns ``(mesh, axis_names)`` with ``axis_names`` mapping data axis →
-    mesh axis name (only split axes present).
+    mesh axis name (only split axes present). The devices are laid out in
+    ``jax.devices()`` order: the cards of one host are joined all to all
+    (NVLink), so the mesh follows the data decomposition alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     n_needed = int(np.prod(shard))
@@ -206,74 +169,48 @@ def run_sharded(
     state: Optional[Dict[str, Any]] = None,
     i_stop=None,
     keep_state: bool = False,
-    fallback: bool = True,
 ):
     """Run the solver sharded over a device mesh. Same return contract as
-    :func:`cytvdn_tpu.solver.engine.run_solver`.
-
-    ``fallback=False`` disables the internal VMEM-gate degradation
-    ladder — for callers that issue MANY run_sharded calls on the same
-    geometry (the out-of-core slab sweeps) and must remember the
-    degraded opts across calls instead of re-paying a failing compile
-    per call."""
+    :func:`cytvdn_tpu.solver.engine.run_solver`."""
     devices = tuple(devices if devices is not None else jax.devices())
-    shard_t = resolve_shard(
-        shard, orig.shape, len(devices),
-        prefer_axis0=temporal_mesh_preference(opts, orig.dtype))
+    shard_t = resolve_shard(shard, orig.shape, len(devices))
     with_ref = reference_data is not None
     with_state = state is not None
     if i_stop is None:
         i_stop = opts.total_iterations
 
-    def attempt(o: SolverOptions):
-        fn, mesh, data_spec = _build_sharded_fn(
-            o, shard_t, orig.ndim, with_ref, with_state, keep_state,
-            devices
-        )
-        # Inputs are committed directly with their target sharding: host
-        # arrays transfer per-shard to their owning devices, never
-        # materializing the full cube on one device (a ``jnp.asarray``
-        # onto the default device would OOM the first chip of a pod on a
-        # pod-scale cube, and — in the driver's dryrun — would touch the
-        # real TPU instead of the CPU mesh).
-        data_sh = NamedSharding(mesh, data_spec)
-        rep_sh = NamedSharding(mesh, P())
+    fn, mesh, data_spec = _build_sharded_fn(
+        opts, shard_t, orig.ndim, with_ref, with_state, keep_state, devices
+    )
+    # Inputs are committed directly with their target sharding: host
+    # arrays transfer per-shard to their owning devices, never
+    # materializing the full cube on one device (a ``jnp.asarray`` onto
+    # the default device would need the whole cube to fit the first card).
+    data_sh = NamedSharding(mesh, data_spec)
+    rep_sh = NamedSharding(mesh, P())
 
-        def put(x, sh):
-            from cytvdn_tpu.utils.checkpoint import ShardedBlocks
+    def put(x, sh):
+        from cytvdn_tpu.utils.checkpoint import ShardedBlocks
 
-            if isinstance(x, ShardedBlocks):
-                # multi-process checkpoint resume: each process supplies
-                # only the blocks its devices own
-                return jax.make_array_from_callback(x.shape, sh, x.lookup)
-            return jax.device_put(x, sh)
+        if isinstance(x, ShardedBlocks):
+            # multi-process checkpoint resume: each process supplies
+            # only the blocks its devices own
+            return jax.make_array_from_callback(x.shape, sh, x.lookup)
+        return jax.device_put(x, sh)
 
-        args = [put(orig, data_sh), put(jnp.asarray(lambda_inv), rep_sh),
-                put(jnp.asarray(lam_mu), rep_sh),
-                put(jnp.asarray(i_stop, jnp.int32), rep_sh)]
-        if with_ref:
-            args.append(put(reference_data, data_sh))
-        if with_state:
-            data_keys = ("recon", "accs", "ds")
-            jstate = {}
-            for k, v in state.items():
-                sh = data_sh if k in data_keys else rep_sh
-                if isinstance(v, tuple):
-                    jstate[k] = tuple(put(x, sh) for x in v)
-                else:
-                    jstate[k] = put(v, sh)
-            args.append(jstate)
-        return fn(*args)
-
-    if not fallback:
-        return attempt(opts)
-
-    from cytvdn_tpu.solver.engine import vmem_fallback
-
-    # the resident kernel never engages under a mesh — temporal_pairs is
-    # the only multi-iteration knob a sharded compile failure can be
-    # blaming, so it is the only one worth a retry
-    local = tuple(e // w for e, w in zip(orig.shape, shard_t))
-    return vmem_fallback(opts, attempt, knobs=("temporal_pairs",),
-                         local_shape=local,
-                         plan_halo0=any(int(w) > 1 for w in shard_t))
+    args = [put(orig, data_sh), put(jnp.asarray(lambda_inv), rep_sh),
+            put(jnp.asarray(lam_mu), rep_sh),
+            put(jnp.asarray(i_stop, jnp.int32), rep_sh)]
+    if with_ref:
+        args.append(put(reference_data, data_sh))
+    if with_state:
+        data_keys = ("recon", "accs", "ds")
+        jstate = {}
+        for k, v in state.items():
+            sh = data_sh if k in data_keys else rep_sh
+            if isinstance(v, tuple):
+                jstate[k] = tuple(put(x, sh) for x in v)
+            else:
+                jstate[k] = put(v, sh)
+        args.append(jstate)
+    return fn(*args)

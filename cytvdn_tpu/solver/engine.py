@@ -8,7 +8,6 @@ engine, parameterized by
 
 - a :class:`Comm` strategy (``NullComm`` for single device;
   ``cytvdn_tpu.parallel.MeshComm`` inside ``shard_map`` for a device mesh),
-- a kernel backend (pure-JAX ops or fused Pallas kernels),
 - the static :class:`~cytvdn_tpu.config.SolverOptions`.
 
 Iteration structure per step (SURVEY.md §8.1; reference cyTVDN.py:147-194):
@@ -33,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-from cytvdn_tpu import ops
+from cytvdn_tpu import kernels, ops
 from cytvdn_tpu.config import Backend, SolverOptions
 
 Array = jax.Array
@@ -57,6 +56,30 @@ class NullComm:
 
     def allsum(self, x: Array) -> Array:
         return x
+
+
+class HaloComm(NullComm):
+    """Fixed operand halos for one slab of a larger cube.
+
+    ``prev`` / ``next`` map a data axis to the slab that
+    :meth:`prev_halo` / :meth:`next_halo` return (the neighbor's last
+    pre-update ``recon`` slab, and its first *updated* accumulator slab);
+    axes absent from a map fall back to the boundary condition. The
+    out-of-core solver streams a host-resident cube through the device
+    with it, so every slab runs the same :func:`step_partials` as the
+    in-core engine.
+    """
+
+    def __init__(self, prev: Optional[Dict[int, Array]] = None,
+                 next: Optional[Dict[int, Array]] = None):
+        self.prev = dict(prev or {})
+        self.next = dict(next or {})
+
+    def prev_halo(self, a: Array, ax: int) -> Optional[Array]:
+        return self.prev.get(ax)
+
+    def next_halo(self, b: Array, ax: int) -> Optional[Array]:
+        return self.next.get(ax)
 
 
 def fista_tk_ratios(n: int) -> np.ndarray:
@@ -104,9 +127,8 @@ def _accumulator_phase(
                 recon, accs[ax], ds[ax], tk_ratio, ax, lambda_inv[ax],
                 opts.bc_mode, halos[ax],
             )
-            # lossy-duals emulation on the XLA ops path: d stores at the
-            # carried dtype (bf16 → rounds every iteration, matching the
-            # K=1 kernel's writeback cadence); no-op when f32
+            # lossy duals: d stores at the carried dtype (bf16 rounds
+            # every iteration); no-op when f32
             accs_new[ax], ds_new[ax] = b, d.astype(ds[ax].dtype)
         else:
             b, n = ops.accumulator_update(
@@ -151,76 +173,58 @@ def _accumulator_phase(
     return tuple(accs_new), (tuple(ds_new) if fista else None), bnorm
 
 
-def _resolve_fused(opts: SolverOptions, shape, dtype, comm) -> Tuple[bool, bool]:
-    """Decide (use_fused_pallas_kernel, interpret_mode) for this config.
+def step_partials(
+    orig: Array,
+    recon: Array,
+    accs: Tuple[Array, ...],
+    ds: Optional[Tuple[Array, ...]],
+    tk_ratio: Optional[Array],
+    lambda_inv: Array,
+    lam_mu: Array,
+    opts: SolverOptions,
+    comm,
+):
+    """One full TV iteration with *local* statistics.
 
-    The fused kernel covers float32 in all BC modes, anisotropic and
-    half-isotropic, single-device and sharded (any-axis operand halos,
-    including split iso-pair axes); float64 uses the XLA ops. AUTO
-    selects Pallas only on TPU; an explicit PALLAS backend on CPU runs the
-    kernel in interpreter mode (for tests).
+    Returns ``(recon_new, accs_new, ds_new, bnorm, delta_num, recon_norm)``;
+    the three scalars are this shard's (or slab's) partial sums, before any
+    ``comm.allsum``. Operand halos come from ``comm``: :class:`NullComm`
+    for a whole cube, ``MeshComm`` inside ``shard_map``, :class:`HaloComm`
+    for one slab of a host-resident cube (``solver/outofcore.py``).
     """
-    from cytvdn_tpu.config import BCMode
-
-    if opts.backend == Backend.JAX or opts.backend == Backend.CPP:
-        return False, False
-    # Split iso-pair axes ride the fused kernel's joint-projection seam
-    # recompute with partner-acc + corner operands (round 5; the reference
-    # has no distributed iso at all, reference README.md:25-26); folded 3D
-    # energy-axis splits ride flat-element halos (round 3), periodic
-    # shards ride ring halos, mirror rides edge-flagged halos.
-    from cytvdn_tpu.kernels.fused import fused_supported
-
-    if not fused_supported(shape, dtype, opts.bc_mode, opts.isotropic_R,
-                           opts.isotropic_Q):
-        return False, False
-    on_tpu = jax.default_backend() == "tpu"
-    if opts.backend == Backend.PALLAS:
-        return True, not on_tpu
-    # AUTO keeps one measured iso gate: a split Q-PAIR axis under
-    # isotropic_Q reads in-block halo slabs whose minor dims collapse to
-    # 1 and pad to the (8,128) tile — phantom traffic that makes the
-    # fused kernel SLOWER than the ops path there (ISO_GAP.json
-    # iso_RQ_fused_halo0123 2.64 G vs iso_RQ_opspath 3.02 G; the
-    # scan-axes case measures 1.01x, iso_R_fused_halo01). The auto
-    # partitioner never splits Q axes (sharded.py::_resolve_shard), so
-    # this only triggers on explicit Q-split shard tuples; an explicit
-    # PALLAS backend (above) still honors the fused path.
-    if opts.isotropic_Q and comm is not None \
-            and not isinstance(comm, NullComm) \
-            and set(getattr(comm, "split_axes", ())) & {2, 3}:
-        return False, False
-    return on_tpu, False  # AUTO
+    accs_new, ds_new, bnorm = _accumulator_phase(
+        recon, accs, ds, tk_ratio, lambda_inv, opts, comm
+    )
+    halos_next = [comm.next_halo(accs_new[k], k) for k in range(opts.ndim)]
+    recon_new, delta_num, recon_norm = ops.datacube_update(
+        orig, recon, accs_new, lam_mu, opts.bc_mode, halos_next
+    )
+    return recon_new, accs_new, ds_new, bnorm, delta_num, recon_norm
 
 
-def _resolve_perm(opts: SolverOptions, shape, dtype, comm):
-    """Axis permutation for the fused path, or None.
+def _use_gpu_step(opts: SolverOptions, dtype, size: int, comm) -> bool:
+    """Whether the iteration runs the hand-written GPU step
+    (``kernels/step.py``) instead of the XLA ops path.
 
-    TPU row-major layouts pad the lane (minor) dim to 128 and the sublane
-    dim to 8; a (…, 72, 72) cube therefore wastes 1.78× HBM capacity *and*
-    bandwidth on every state array. The TV update is symmetric under axis
-    permutation, so when the fused kernel will run (single device, JZ,
-    anisotropic, float32) the solver transposes the whole problem once per
-    run to the densest orientation (``kernels.fused.choose_perm``) and
-    transposes results back at the end. The XLA ops path never needs this —
-    layout assignment already picks dense layouts there.
+    ``AUTO`` takes it on a GPU when it covers the configuration on one
+    device; ``PALLAS`` demands it and raises where it cannot run — it
+    never falls back to an interpreter.
     """
-    if not isinstance(comm, NullComm):
-        return None
-    if opts.backend in (Backend.JAX, Backend.CPP):
-        return None
-    if opts.isotropic_R or opts.isotropic_Q:
-        return None
-    from cytvdn_tpu.config import BCMode
-
-    if opts.bc_mode != BCMode.JIA_ZHAO or dtype != jnp.float32:
-        return None
-    if opts.backend == Backend.AUTO and jax.default_backend() != "tpu":
-        return None
-    from cytvdn_tpu.kernels.fused import choose_perm
-
-    perm = choose_perm(tuple(shape), np.dtype(dtype).itemsize)
-    return None if perm == tuple(range(len(shape))) else perm
+    if opts.backend not in (Backend.AUTO, Backend.PALLAS):
+        return False
+    fits = type(comm) is NullComm and kernels.covers(opts, dtype, size)
+    if opts.backend == Backend.AUTO:
+        return fits and jax.default_backend() == "gpu"
+    if jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "backend='pallas' needs an NVIDIA GPU; JAX's default backend "
+            f"is {jax.default_backend()!r}")
+    if not fits:
+        raise ValueError(
+            "backend='pallas' covers float32 Jia-Zhao anisotropic runs "
+            "with exact duals on one device, of at most "
+            f"{kernels.step.MAX_SIZE} elements; use 'auto' or 'jax'")
+    return True
 
 
 def iteration_step(
@@ -237,158 +241,18 @@ def iteration_step(
     """One full TV iteration (accumulators + reconstruction + statistics).
 
     Returns ``(recon_new, accs_new, ds_new, bnorm, delta)`` with ``bnorm``
-    and ``delta`` already globally reduced through ``comm.allsum``.
-    Dispatches to the fused Pallas kernel on the hot path, otherwise to the
-    pure-JAX ops.
+    and ``delta`` already globally reduced through ``comm.allsum``. The
+    body is the GPU step where :func:`_use_gpu_step` selects it, and the
+    XLA ops path (``ops/stencil.py``) otherwise.
     """
     comm = comm or NullComm()
-    use_fused, interpret = _resolve_fused(opts, orig.shape, orig.dtype, comm)
-    if use_fused:
-        from cytvdn_tpu.config import BCMode
-        from cytvdn_tpu.kernels.fused import fused_iteration
-
-        fista = ds is not None
-        halos = None
-        edge_next = None
-        if not isinstance(comm, NullComm):
-            # shard-seam operand halos (pre-update state) for axes 0, 1 and
-            # any split in-block (Q) axis. Edge shards get values that
-            # realize the BC exactly: JZ backward edges read the own edge
-            # slab (zero difference) and forward edges recompute from (own
-            # last recon slab, zero acc, zero d) — the identically-zero JZ
-            # wrap slab; mirror backward edges read the adjacent interior
-            # slab, and mirror forward edges select the own updated
-            # trailing slab in-kernel via per-shard edge flags (interior
-            # shards recompute the +1 neighbor's slab as under JZ).
-            from cytvdn_tpu.ops.stencil import _slab as slab
-
-            halos = {}
-            split = set(comm.split_axes)
-            halo_axes = sorted({0, 1} | (split & set(range(2, opts.ndim))))
-            periodic = opts.bc_mode == BCMode.PERIODIC
-            mirror = opts.bc_mode == BCMode.MIRROR
-            for ax in halo_axes:
-                if periodic:
-                    # ring halos: the global wrap IS the ring — uniform,
-                    # no edge masking (cf. reference utils.pyx:98-101's
-                    # % wraparound, here across shards)
-                    halos[f"prev{ax}"] = comm.ring_from_prev(recon, ax)
-                    halos[f"next{ax}_recon"] = comm.ring_from_next(
-                        recon, ax)
-                    halos[f"next{ax}_acc"] = comm.ring_from_next(
-                        accs[ax], ax)
-                    if fista:
-                        halos[f"next{ax}_d"] = comm.ring_from_next(
-                            ds[ax], ax).astype(orig.dtype)
-                    continue
-                z = jnp.zeros_like(slab(accs[ax], ax, 0))
-                prev_edge = slab(recon, ax, 1 if mirror else 0)
-                halos[f"prev{ax}"] = comm.shift_from_prev(
-                    recon, ax, prev_edge)
-                # edge shards never read the next* slots under mirror (the
-                # edge flag selects the in-kernel own-slab path), so the JZ
-                # edge values serve as well-defined placeholders there
-                halos[f"next{ax}_recon"] = comm.shift_from_next(
-                    recon, ax, slab(recon, ax, -1))
-                halos[f"next{ax}_acc"] = comm.shift_from_next(
-                    accs[ax], ax, z)
-                if fista:
-                    # the d slab ppermutes at its storage dtype (bf16
-                    # under lossy_duals — half the wire bytes) and widens
-                    # exactly to the kernel's uniform-f32 halo operand
-                    halos[f"next{ax}_d"] = comm.shift_from_next(
-                        ds[ax], ax, z.astype(ds[ax].dtype)
-                    ).astype(orig.dtype)
-            if (opts.isotropic_R or opts.isotropic_Q) and not periodic:
-                # sharded half-isotropic (beyond the reference, which has
-                # no distributed iso at all, reference README.md:25-26):
-                # a split pair axis's +1 seam recompute is the JOINT
-                # projection, which additionally needs the neighbor's
-                # pre-update accumulator along the pair PARTNER axis —
-                # and, when the partner is split too, the diagonal
-                # shard's recon corner (the partner-backward operand at
-                # the slab's leading index). Corner = the partner-prev
-                # shard's last slab of the already-masked next-recon halo;
-                # partner-edge shards get the halo's own leading slab
-                # (zero difference — exactly the JZ mask it replaces).
-                pairs = ([(0, 1)] if opts.isotropic_R else []) \
-                    + ([(2, 3)] if opts.isotropic_Q else [])
-                for p_, q_ in pairs:
-                    for s, o in ((p_, q_), (q_, p_)):
-                        if s not in split:
-                            continue
-                        zo = jnp.zeros_like(slab(accs[o], s, 0))
-                        halos[f"next{s}_acc{o}"] = comm.shift_from_next(
-                            accs[o], s, zo)
-                        if o in split:
-                            nr = halos[f"next{s}_recon"]
-                            halos[f"corner{s}"] = comm.shift_from_prev(
-                                nr, o, slab(nr, o, 0))
-            if mirror:
-                from jax import lax as _lax
-
-                flags = []
-                for ax in range(opts.ndim):
-                    name = comm.axis_names.get(ax)
-                    if name is None:
-                        flags.append(jnp.float32(1.0))
-                    else:
-                        flags.append(
-                            (_lax.axis_index(name)
-                             == _lax.axis_size(name) - 1)
-                            .astype(jnp.float32))
-                edge_next = jnp.stack(flags)
-        elif opts.bc_mode == BCMode.PERIODIC:
-            # single-device periodic: synthesize the wrap slabs as halo
-            # values for axes 0 and 1 (in-block axes wrap inside the
-            # kernel); the forward wrap is recomputed from the leading
-            # slab's pre-update state — identical arithmetic to the
-            # leading block's own update (reference anisotropic.pyx:67-68,
-            # utils.pyx:98-101)
-            from cytvdn_tpu.ops.stencil import _slab as slab
-
-            halos = {}
-            for ax in (0, 1):
-                halos[f"prev{ax}"] = slab(recon, ax, -1)
-                halos[f"next{ax}_recon"] = slab(recon, ax, 0)
-                halos[f"next{ax}_acc"] = slab(accs[ax], ax, 0)
-                if fista:
-                    halos[f"next{ax}_d"] = slab(ds[ax], ax, 0)
-        elif opts.bc_mode == BCMode.MIRROR:
-            # single-device mirror: backward edges read the adjacent
-            # interior slab; forward edges are handled in-kernel (own
-            # trailing updated slab — zero difference, corrected mirror).
-            # The next* slots are structurally required but unread.
-            from cytvdn_tpu.ops.stencil import _slab as slab
-
-            halos = {}
-            for ax in (0, 1):
-                halos[f"prev{ax}"] = slab(recon, ax, 1)
-                halos[f"next{ax}_recon"] = halos[f"prev{ax}"]
-                halos[f"next{ax}_acc"] = halos[f"prev{ax}"]
-                if fista:
-                    halos[f"next{ax}_d"] = halos[f"prev{ax}"]
-
-        recon_new, accs_new, ds_new, bnorm, dnum, dden = fused_iteration(
-            orig, recon, accs, ds,
-            tk_ratio if fista else jnp.zeros((), orig.dtype),
-            lambda_inv, lam_mu, fista=fista, interpret=interpret,
-            halos=halos, bc=int(opts.bc_mode),
-            iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q,
-            edge_next=edge_next,
-        )
-        bnorm = comm.allsum(bnorm)
-        delta = comm.allsum(dnum) / comm.allsum(dden)
-        return recon_new, accs_new, ds_new, bnorm.astype(orig.dtype), \
-            delta.astype(orig.dtype)
-
-    accs_new, ds_new, bnorm = _accumulator_phase(
-        recon, accs, ds, tk_ratio, lambda_inv, opts, comm
-    )
-    halos_next = [comm.next_halo(accs_new[k], k) for k in range(opts.ndim)]
-    recon_new, delta_num, recon_norm = ops.datacube_update(
-        orig, recon, accs_new, lam_mu, opts.bc_mode, halos_next
-    )
+    if _use_gpu_step(opts, recon.dtype, recon.size, comm):
+        step = kernels.gpu_step(orig, recon, accs, ds, tk_ratio, lambda_inv,
+                                lam_mu)
+    else:
+        step = step_partials(orig, recon, accs, ds, tk_ratio, lambda_inv,
+                             lam_mu, opts, comm)
+    recon_new, accs_new, ds_new, bnorm, delta_num, recon_norm = step
     bnorm = comm.allsum(bnorm)
     delta = comm.allsum(delta_num) / comm.allsum(recon_norm)
     return recon_new, accs_new, ds_new, bnorm, delta
@@ -485,820 +349,6 @@ def _run_phase(
     return lax.while_loop(cond, body, carry)
 
 
-def _resolve_temporal(opts: SolverOptions, shape, dtype, comm) -> bool:
-    """Whether iterations may run in PAIRS through the temporally-blocked
-    K=2 kernel (``kernels/temporal.py``): Jia-Zhao anisotropic float32,
-    fixed momentum schedule, on a single device or an axis-0/axis-1 mesh
-    (2-row operand-halo bands) or a 2D grid (seam repair). Per-iteration
-    MSE rides the kernel's SSE reductions (one extra operand); on 2D
-    grids the seam repair adjusts the SSE sums over the recon wrong sets
-    (``parallel/pairfix.py``). Results are bit-identical to the K=1
-    kernel, so this is purely a throughput decision.
-
-    ``stopping_relative_change`` does NOT disable pairs (the reference's
-    canonical converged workflows all set it, reference
-    cyTVDN/cyTVDN.py:44,253): the paired loop runs while a conservative
-    extrapolation of the delta trace stays above the threshold and hands
-    the final approach to the exact-stopping K=1 loop (discarding a pair
-    whose first iteration crosses, so the stop is exact in every case) —
-    see :func:`_run_phase_paired`."""
-    from cytvdn_tpu.config import BCMode
-
-    if not opts.temporal_pairs:
-        return False
-    halo = False
-    if comm is not None and not isinstance(comm, NullComm):
-        split = set(getattr(comm, "split_axes", ()))
-        if split not in (set(), {0}, {1}, {0, 1}):
-            return False  # Q splits run the K=1 sharded path
-        if split == {1} and shape[1] < 2:
-            return False  # the left/right seam recomputes need 2 columns
-        if split == {0, 1} and shape[1] < 4:
-            return False  # the 2D-grid seam-repair strips need 4 columns
-        halo = bool(split)
-    if opts.fista_restart or opts.isotropic_R or opts.isotropic_Q:
-        return False
-    if opts.bc_mode != BCMode.JIA_ZHAO:
-        return False
-    use_fused, _ = _resolve_fused(opts, shape, dtype, comm)
-    if not use_fused:
-        return False
-    from cytvdn_tpu.kernels.temporal import pair_hbm_viable, pair_supported
-
-    if not pair_supported(shape, dtype, opts.bc_mode, halo0=halo,
-                          with_mse=opts.calculate_mse,
-                          block_cap=opts.pair_block_cap):
-        return False
-    halo1 = halo and comm is not None \
-        and set(getattr(comm, "split_axes", ())) == {1}
-    if halo and jax.default_backend() == "tpu" \
-            and not pair_hbm_viable(shape, halo1=halo1,
-                                    with_mse=opts.calculate_mse,
-                                    block_cap=opts.pair_block_cap):
-        # pod-scale shards: VMEM forces small strips, and the band
-        # gathers (cube/B1 each) then exceed HBM — run the K=1 kernel.
-        # (Single-device configs are sized by the bench/caller against
-        # the in-core budget and validated empirically.)
-        return False
-    return True
-
-
-def _resolve_kstep(opts: SolverOptions, shape, dtype, comm,
-                   fista: bool) -> int:
-    """Staircase depth for the generalized K-step kernel
-    (``kernels/kstep.py``), or 0 to stay on the K=2 pair kernel.
-
-    Engages only where the pair kernel would (``_resolve_temporal``)
-    AND the run is single-device with no per-iteration MSE, on a
-    single-strip work layout — i.e. the shapes where deeper temporal
-    blocking costs no seam machinery at all. Stop-aware runs ride the
-    same predictive-guard / block-discard machinery as the paired loop
-    (see :func:`_run_phase_kstep`), with a K-deep guard horizon, so
-    early stop stays exact. Bit-identical to K=1/K=2 execution, so this
-    is purely a throughput decision; the VMEM-fallback ladder flips
-    ``temporal_kstep`` off (back to pairs) on a compile-time
-    miscalibration."""
-    if not opts.temporal_kstep:
-        return 0
-    if comm is not None and not isinstance(comm, NullComm):
-        return 0
-    if opts.calculate_mse:
-        return 0
-    from cytvdn_tpu.kernels.kstep import best_kstep
-
-    return best_kstep(shape, dtype, opts.bc_mode, fista,
-                      forced=opts.temporal_k)
-
-
-def _run_phase_kstep(
-    fista: bool,
-    i_bound,
-    carry: _PhaseCarry,
-    orig: Array,
-    tk_ratios: Array,
-    lambda_inv: Array,
-    lam_mu: Array,
-    opts: SolverOptions,
-    interpret: bool,
-    i_stop,
-    k: int,
-) -> _PhaseCarry:
-    """Advance a phase K iterations at a time through the K-step
-    kernel. Runs ``floor((bound - i)/K)`` passes; the paired loop and
-    the K=1 path finish any remainder. All K per-iteration trace
-    entries are recorded exactly as the one-at-a-time loop would.
-
-    **Stop-aware K-stepping** mirrors :func:`_run_phase_paired` with a
-    K-deep horizon: with ``opts.stopping_relative_change`` set, passes
-    continue only while the conservative extrapolation ``d1 · r^(2K)``
-    (decay rate doubling in log terms for all K iterations) stays above
-    the threshold. A crossing at the pass's LAST delta latches ``done``
-    — the run ends at the converging iteration, exactly where the K=1
-    loop stops. A crossing at any EARLIER delta means the kernel
-    computed past the stop: the pass's block is DISCARDED (blocks of
-    ``2·_STOP_CKPT_PAIRS`` iterations, one carry checkpoint per block —
-    the same defensive-copy amortization as the paired loop) and the
-    pairs/K=1 finishers redo those iterations with their exact stop
-    checks, so state, stop iteration and traces are bit-identical to
-    the unblocked run in every case."""
-    from cytvdn_tpu.kernels.kstep import fused_kstep_iteration
-
-    bound = jnp.minimum(jnp.asarray(i_bound, jnp.int32),
-                        jnp.asarray(i_stop, jnp.int32))
-    dtype = orig.dtype
-    stopping = opts.stopping_relative_change
-
-    def cond(cb):
-        c, bail = cb
-        ok = jnp.logical_and(c.i + k <= bound,
-                             jnp.logical_not(c.done))
-        if stopping is not None:
-            ok = jnp.logical_and(ok, jnp.logical_not(bail))
-            d1 = c.delta[jnp.maximum(c.i - 1, 0)].astype(jnp.float32)
-            d2 = c.delta[jnp.maximum(c.i - 2, 0)].astype(jnp.float32)
-            have = jnp.logical_and(c.i >= 2,
-                                   jnp.logical_and(d1 > 0, d2 > 0))
-            r = jnp.clip(d1 / jnp.where(d2 > 0, d2, jnp.float32(1.0)),
-                         0.0, 1.0)
-            pred = d1 * r ** (2 * k)
-            ok = jnp.logical_and(
-                ok, jnp.logical_and(have, pred >= jnp.float32(stopping)))
-        return ok
-
-    def body(cb):
-        c, _ = cb
-        if fista:
-            rhos = lax.dynamic_slice(
-                tk_ratios, (c.i,), (k,)).astype(jnp.float32)
-            ds = c.ds
-        else:
-            rhos = jnp.zeros((k,), jnp.float32)
-            ds = None
-        reconK, accsK, dsK, bn, dnum, dden = fused_kstep_iteration(
-            orig, c.recon, c.accs, ds, rhos, lambda_inv, lam_mu,
-            k=k, fista=fista, interpret=interpret)
-        dvc = (dnum / dden).astype(c.delta.dtype)
-        b_norm, delta_tr = c.b_norm, c.delta
-        for t in range(k):
-            b_norm = b_norm.at[c.i + t].set(
-                bn[t].astype(b_norm.dtype))
-            delta_tr = delta_tr.at[c.i + t].set(dvc[t])
-        new_c = _PhaseCarry(
-            i=c.i + k,
-            done=(jnp.asarray(dvc[k - 1] < stopping)
-                  if stopping is not None else c.done),
-            recon=reconK,
-            accs=accsK,
-            ds=dsK if fista else c.ds,
-            b_norm=b_norm,
-            delta=delta_tr,
-            mse=c.mse,
-            tk=c.tk,
-        )
-        if stopping is None:
-            return new_c, jnp.zeros((), bool)
-        # a crossing strictly before the pass's last delta means the
-        # guard was beaten and the kernel ran past the stop — FLAG it;
-        # the outer block loop discards back to its checkpoint. As in
-        # the paired loop, the pre-pass carry must NOT be referenced
-        # here (it would force a defensive copy of every aliased state
-        # array per pass).
-        beat = jnp.any(dvc[: k - 1] < stopping)
-        return new_c, beat
-
-    if stopping is None:
-        carry, _ = lax.while_loop(cond, body,
-                                  (carry, jnp.zeros((), bool)))
-        return carry
-
-    # Stop-aware runs: K-passes run in blocks of ~2·_STOP_CKPT_PAIRS
-    # iterations with ONE carry checkpoint per block; a guard beat
-    # discards the whole block and bails with the block-start state —
-    # bit-exact, since the pairs/K=1 finishers redo the discarded
-    # iterations with their exact stop checks.
-    def inner_cond(cbl):
-        c, bail, limit = cbl
-        return jnp.logical_and(cond((c, bail)), c.i < limit)
-
-    def inner_body(cbl):
-        c, b, limit = cbl
-        c2, beat = body((c, b))
-        return c2, beat, limit
-
-    def outer_body(cb):
-        c, _ = cb
-        ckpt = c
-        c2, beat, _ = lax.while_loop(
-            inner_cond, inner_body,
-            (c, jnp.zeros((), bool),
-             c.i + jnp.int32(2 * _STOP_CKPT_PAIRS)))
-        out = lax.cond(beat, lambda: ckpt, lambda: c2)
-        return out, beat
-
-    carry, _ = lax.while_loop(cond, outer_body,
-                              (carry, jnp.zeros((), bool)))
-    return carry
-
-
-def _resident_gates(opts: SolverOptions, shape, dtype, comm,
-                    n_iters: int) -> Tuple[bool, bool]:
-    """Gate ladder shared by the resident kernel's two serving modes
-    (whole-run and chunked): single-device float32 pallas runs
-    (anisotropic, or 4D half-isotropic under Jia-Zhao)
-    without adaptive restart, on a state the kernel's VMEM plan
-    accepts for ``n_iters`` in-kernel iterations (traces and the MSE
-    reference window included). Returns (use, interpret). Mode-specific
-    gates (stopping, schedule length) live in the two
-    ``_resolve_resident*`` wrappers — keep any new option gate HERE so
-    both modes stay in lockstep."""
-    if not opts.vmem_resident:
-        return False, False
-    if opts.lossy_duals:
-        # the resident kernel holds ds in VMEM for the whole run — there
-        # is no HBM dual traffic to save, and mixing rounding cadences
-        # would change the mode's semantics. Lossy runs stream.
-        return False, False
-    if opts.backend in (Backend.JAX, Backend.CPP):
-        return False, False
-    if comm is not None and not isinstance(comm, NullComm):
-        return False, False
-    if opts.fista_restart:
-        return False, False
-    from cytvdn_tpu.kernels.resident import resident_supported
-
-    if not resident_supported(shape, dtype, opts.bc_mode,
-                              fista=opts.iterations_fista > 0,
-                              n_iters=n_iters,
-                              isotropic_R=opts.isotropic_R,
-                              isotropic_Q=opts.isotropic_Q,
-                              with_mse=opts.calculate_mse):
-        return False, False
-    on_tpu = jax.default_backend() == "tpu"
-    if opts.backend == Backend.PALLAS:
-        return True, not on_tpu
-    return on_tpu, False  # AUTO
-
-
-def _resolve_resident(opts: SolverOptions, shape, dtype,
-                      comm) -> Tuple[bool, bool]:
-    """Decide (use_vmem_resident_kernel, interpret) for this config.
-
-    The resident kernel (``kernels/resident.py``) runs the WHOLE schedule
-    inside one pallas launch with all state in VMEM — per-iteration HBM
-    traffic is O(1/T) instead of ~10 traversals, lifting small cubes off
-    the ~10 µs/step grid floor. Fresh runs without early stop only; the
-    caller additionally requires a fresh state and an uncapped i_stop."""
-    if opts.stopping_relative_change is not None:
-        return False, False
-    return _resident_gates(opts, shape, dtype, comm,
-                           n_iters=opts.total_iterations)
-
-
-#: iterations per resident chunk in stop-aware runs — large enough to
-#: amortize launch cost, small enough that the predictive guard's 2-chunk
-#: lookahead stays sharp
-_RESIDENT_CHUNK = 16
-
-#: pairs per block in the stop-aware paired loop's checkpointed outer
-#: loop: the block-start state copy (the only defensive copy the aliased
-#: kernel chain pays) amortizes 1/_STOP_CKPT_PAIRS, and a guard beat
-#: replays ≤ 2x this many iterations through the exact K=1 finisher
-_STOP_CKPT_PAIRS = 16
-
-
-def _resolve_resident_chunks(opts: SolverOptions, shape, dtype,
-                             comm) -> Tuple[bool, bool]:
-    """Resident-kernel chunking: advance ``_RESIDENT_CHUNK`` iterations
-    per launch with state resumed through HBM.
-
-    Serves the runs the whole-schedule resident path can't: (a) runs
-    WITH ``stopping_relative_change`` — chunks continue while a
-    predictive guard says the threshold cannot be crossed, then pairs /
-    K=1 perform the exact stop; (b) dynamically capped runs (chunked
-    checkpoint/progress execution, ``run_chunked``) — chunks advance to
-    within a chunk of the cap, pairs/K=1 finish the remainder, so
-    checkpoint cadence costs O(2·state/chunk) HBM traffic per iteration
-    instead of the streaming kernels' ~10 traversals. Shares
-    :func:`_resident_gates` with the whole-run resolver."""
-    if opts.total_iterations < _RESIDENT_CHUNK:
-        # the loop body traces unconditionally: its chunk-wide trace
-        # writes need trace arrays at least one chunk long (and shorter
-        # runs have nothing to gain from chunking anyway)
-        return False, False
-    return _resident_gates(opts, shape, dtype, comm,
-                           n_iters=_RESIDENT_CHUNK)
-
-
-def _run_phase_resident(
-    fista: bool,
-    i_bound,
-    carry: _PhaseCarry,
-    orig: Array,
-    tk_ratios: Array,
-    lambda_inv: Array,
-    lam_mu: Array,
-    opts: SolverOptions,
-    interpret: bool,
-    i_stop,
-    reference_data: Optional[Array] = None,
-) -> _PhaseCarry:
-    """Advance a stop-aware phase ``_RESIDENT_CHUNK`` iterations at a
-    time through the VMEM-resident kernel.
-
-    With ``stopping_relative_change`` set, the loop continues only while
-    the predictive guard (the paired loop's ``d1·r^k`` extrapolation,
-    here with ``k = 2·chunk`` — the worst case modeled is the decay rate
-    doubling for two full chunks) says the threshold cannot be crossed
-    inside the next chunk; the pairs/K=1 phases after it perform the
-    exact approach and stop. If delta nevertheless collapses mid-chunk
-    (the guard beaten), the chunk is DISCARDED — the loop bails with the
-    pre-chunk state intact and the pairs/K=1 phases redo those
-    iterations with their exact stop checks, so the final state is
-    bit-identical to the streaming run in every case, not just when the
-    prediction holds. The bail keeps the pre-chunk state live across the
-    aliased kernel call, which costs one defensive state copy per chunk
-    (~2 extra HBM traversals / ``T`` iterations) — only paid when
-    stopping is set. Without stopping (dynamically capped chunked runs),
-    chunks simply advance to within one chunk of the bound — state is
-    bit-identical to the streaming loops either way."""
-    from cytvdn_tpu.kernels.resident import resident_solve
-
-    T = _RESIDENT_CHUNK
-    stopping = opts.stopping_relative_change
-    bound = jnp.minimum(jnp.asarray(i_bound, jnp.int32),
-                        jnp.asarray(i_stop, jnp.int32))
-    if fista:
-        rhos_full = jnp.concatenate(
-            [tk_ratios.astype(jnp.float32), jnp.zeros((T,), jnp.float32)])
-
-    def cond(cb):
-        c, bail = cb
-        ok = jnp.logical_and(c.i + T <= bound, jnp.logical_not(c.done))
-        if stopping is None:
-            return ok
-        ok = jnp.logical_and(ok, jnp.logical_not(bail))
-        d1 = c.delta[jnp.maximum(c.i - 1, 0)].astype(jnp.float32)
-        d2 = c.delta[jnp.maximum(c.i - 2, 0)].astype(jnp.float32)
-        have = jnp.logical_and(c.i >= 2,
-                               jnp.logical_and(d1 > 0, d2 > 0))
-        r = jnp.clip(d1 / jnp.where(d2 > 0, d2, jnp.float32(1.0)),
-                     0.0, 1.0)
-        pred = d1 * r ** (2 * T)
-        return jnp.logical_and(
-            ok, jnp.logical_and(have, pred >= jnp.float32(stopping)))
-
-    def body(cb):
-        c, _ = cb
-        rhos = (lax.dynamic_slice(rhos_full, (c.i,), (T,)) if fista
-                else jnp.zeros((T,), jnp.float32))
-        ds = tuple(c.ds) if fista else None
-        with_mse = opts.calculate_mse
-        routs = resident_solve(
-            orig, rhos, lambda_inv, lam_mu, n_iters=T, fista=fista,
-            interpret=interpret, state=(c.recon, tuple(c.accs), ds),
-            bc=int(opts.bc_mode),
-            ref=reference_data if with_mse else None,
-            iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q,
-        )
-        recon, accs, ds_n, bn, dnum, dden = routs[:6]
-        deltas = (dnum / dden).astype(c.delta.dtype)
-        b_norm = lax.dynamic_update_slice(
-            c.b_norm, bn.astype(c.b_norm.dtype), (c.i,))
-        delta_tr = lax.dynamic_update_slice(c.delta, deltas, (c.i,))
-        mse_tr = c.mse
-        if with_mse:
-            # the K=1 loop records sse AFTER iteration i at mse[i+1]
-            mse_tr = lax.dynamic_update_slice(
-                c.mse, routs[6].astype(c.mse.dtype), (c.i + 1,))
-        new_c = _PhaseCarry(
-            i=c.i + T,
-            done=c.done,
-            recon=recon,
-            accs=accs,
-            ds=ds_n if fista else c.ds,
-            b_norm=b_norm,
-            delta=delta_tr,
-            mse=mse_tr,
-            tk=c.tk,
-        )
-        if stopping is None:
-            return new_c, jnp.zeros((), bool)
-        # mid-chunk crossing: the predictive guard was beaten — discard
-        # the chunk (keep c) and bail; the exact stop-checking phases
-        # after this loop redo the iterations from the pre-chunk state
-        crossed = jnp.any(deltas < stopping)
-        return lax.cond(crossed, lambda: c, lambda: new_c), crossed
-
-    carry, _ = lax.while_loop(cond, body,
-                              (carry, jnp.zeros((), bool)))
-    return carry
-
-
-def _run_phase_paired(
-    fista: bool,
-    i_bound,
-    carry: _PhaseCarry,
-    orig: Array,
-    tk_ratios: Array,
-    lambda_inv: Array,
-    lam_mu: Array,
-    opts: SolverOptions,
-    interpret: bool,
-    i_stop,
-    comm=None,
-    reference_data: Optional[Array] = None,
-) -> _PhaseCarry:
-    """Advance a phase two iterations at a time through the K=2 kernel.
-
-    Runs ``floor((bound - i)/2)`` pairs; the caller's ``_run_phase``
-    finishes any odd remainder through the K=1 path. Both per-iteration
-    trace entries are recorded exactly as the one-at-a-time loop would.
-    On an axis-0 mesh the body exchanges 2-row pre-update bands with the
-    neighbor shards per pair (the pair kernel's ``halos0``) and ``psum``s
-    the reductions.
-
-    **Stop-aware pairing.** When ``opts.stopping_relative_change`` is set
-    the loop additionally requires a conservative on-device prediction
-    that the threshold cannot be crossed inside the next pair: with the
-    two most recent recorded deltas ``d1`` (latest) and ``d2``, per-step
-    decay ``r = clip(d1/d2, 0, 1)``, pairs continue only while
-    ``d1 · r⁴ ≥ stopping`` — the worst case modeled is the decay rate
-    doubling (in log terms) for both iterations of the pair. The exact
-    per-iteration stop check then happens in the K=1 finisher, which is
-    bit-identical state-wise, so stop-aware runs normally reproduce the
-    unpaired run exactly (tests assert this). If delta nevertheless
-    collapses faster than the prediction: a crossing at the pair's
-    *second* delta simply latches ``done`` — the pair ends at the
-    converging iteration, exactly where the K=1 loop stops (reference
-    cyTVDN/cyTVDN.py:189-194); a crossing at the pair's *first* delta
-    means the kernel computed one iteration past the stop, so the pair
-    is DISCARDED and the K=1 finisher redoes those iterations with its
-    exact per-iteration stop check. The final state, stop iteration, and
-    traces are therefore bit-identical to the unpaired run in EVERY case
-    (the same discard-and-bail scheme as the resident chunks,
-    :func:`_run_phase_resident`).
-
-    The discard state is kept at BLOCK granularity: pairs run in blocks
-    of ``_STOP_CKPT_PAIRS`` inside an outer loop that checkpoints the
-    carry once per block, and a guard beat discards the whole block
-    (the finisher redoes ≤ 2·_STOP_CKPT_PAIRS iterations, once per run
-    at most). Keeping the pre-pair carry live across EVERY
-    kernel call — the first implementation — forced XLA to defensively
-    copy every aliased state array per pair and halved the measured
-    stop-path throughput (bench floor catch, round 3); per-block
-    checkpointing pays that copy once per ``_STOP_CKPT_PAIRS`` pairs."""
-    from cytvdn_tpu.kernels.temporal import fused_pair_iteration
-
-    comm = comm or NullComm()
-    sharded = not isinstance(comm, NullComm)
-    bound = jnp.minimum(jnp.asarray(i_bound, jnp.int32),
-                        jnp.asarray(i_stop, jnp.int32))
-    dtype = orig.dtype
-    stopping = opts.stopping_relative_change
-
-    def cond(cb):
-        c, bail = cb
-        ok = jnp.logical_and(c.i + 2 <= bound, jnp.logical_not(c.done))
-        if stopping is not None:
-            ok = jnp.logical_and(ok, jnp.logical_not(bail))
-            d1 = c.delta[jnp.maximum(c.i - 1, 0)].astype(jnp.float32)
-            d2 = c.delta[jnp.maximum(c.i - 2, 0)].astype(jnp.float32)
-            have = jnp.logical_and(c.i >= 2,
-                                   jnp.logical_and(d1 > 0, d2 > 0))
-            r = jnp.clip(d1 / jnp.where(d2 > 0, d2, jnp.float32(1.0)),
-                         0.0, 1.0)
-            pred = d1 * r * r * r * r
-            ok = jnp.logical_and(
-                ok, jnp.logical_and(have, pred >= jnp.float32(stopping)))
-        return ok
-
-    run_blocked = stopping is not None
-
-    def body(cb):
-        c, _ = cb
-        if fista:
-            rho1 = tk_ratios[c.i].astype(dtype)
-            rho2 = tk_ratios[c.i + 1].astype(dtype)
-            ds = c.ds
-        else:
-            rho1 = rho2 = jnp.zeros((), dtype)
-            ds = None
-        halos0 = f0 = l0 = None
-        halos1 = f1 = l1 = None
-        grid2d = sharded and {0, 1} <= set(comm.split_axes)
-        # both halo sets ride ONE packed ppermute per direction — the
-        # per-slab formulation would issue ~20 collectives per pair step.
-        # 2D grids take the axis-0 halo path; the kernel's JZ axis-1
-        # edges are then repaired post-hoc (parallel/pairfix.py).
-        if sharded and 1 in comm.split_axes and not grid2d:
-            from cytvdn_tpu.ops.stencil import _slab as slab
-
-            nd = opts.ndim
-            next_pieces = [slab(c.recon, 1, 0), slab(c.recon, 1, 1),
-                           slab(orig, 1, 0)]
-            next_pieces += [slab(c.accs[k], 1, 0) for k in range(nd)]
-            next_pieces += [slab(c.accs[1], 1, 1)]
-            keys_n = ["n_r0_c0", "n_r0_c1", "n_orig_c0"]
-            keys_n += [f"n_acc{k}_c0" for k in range(nd)]
-            keys_n += ["n_acc1_c1"]
-            if fista:
-                # d slabs widen to f32 at the pack (exact; bf16 under
-                # lossy_duals) — the packed collective and the kernel's
-                # halo operands are uniform f32
-                next_pieces += [slab(ds[k], 1, 0).astype(dtype)
-                                for k in range(nd)]
-                next_pieces += [slab(ds[1], 1, 1).astype(dtype)]
-                keys_n += [f"n_d{k}_c0" for k in range(nd)] + ["n_d1_c1"]
-            prev_pieces = [slab(c.recon, 1, -2), slab(c.recon, 1, -1),
-                           slab(orig, 1, -1)]
-            prev_pieces += [slab(c.accs[k], 1, -1) for k in range(nd)]
-            keys_p = ["p_r0_m2", "p_r0_m1", "p_orig_m1"]
-            keys_p += [f"p_acc{k}_m1" for k in range(nd)]
-            if fista:
-                prev_pieces += [slab(ds[k], 1, -1).astype(dtype)
-                                for k in range(nd)]
-                keys_p += [f"p_d{k}_m1" for k in range(nd)]
-            halos1 = dict(zip(keys_n,
-                              comm.pack_exchange_next(next_pieces, 1)))
-            halos1.update(zip(keys_p,
-                              comm.pack_exchange_prev(prev_pieces, 1)))
-            f1, l1 = comm.is_first(1), comm.is_last(1)
-        elif sharded:
-            from cytvdn_tpu.ops.stencil import _slab as slab
-
-            nd = opts.ndim
-            prev_pieces = [slab(c.recon, 0, -2), slab(c.recon, 0, -1),
-                           slab(orig, 0, -1)]
-            prev_pieces += [slab(c.accs[k], 0, -1) for k in range(nd)]
-            if fista:
-                # d slabs widen to f32 at the pack (exact; bf16 under
-                # lossy_duals)
-                prev_pieces += [slab(ds[k], 0, -1).astype(dtype)
-                                for k in range(nd)]
-            got_p = comm.pack_exchange_prev(prev_pieces, 0)
-            halos0 = {
-                "p_r0": jnp.concatenate(got_p[0:2], axis=0),
-                "p_orig": got_p[2],
-            }
-            for k in range(nd):
-                halos0[f"p_acc{k}"] = got_p[3 + k]
-                if fista:
-                    halos0[f"p_d{k}"] = got_p[3 + nd + k]
-            next_pieces = [slab(c.recon, 0, 0), slab(c.recon, 0, 1),
-                           slab(orig, 0, 0),
-                           slab(c.accs[0], 0, 0), slab(c.accs[0], 0, 1)]
-            next_pieces += [slab(c.accs[k], 0, 0) for k in range(1, nd)]
-            if fista:
-                next_pieces += [slab(ds[0], 0, 0).astype(dtype),
-                                slab(ds[0], 0, 1).astype(dtype)]
-                next_pieces += [slab(ds[k], 0, 0).astype(dtype)
-                                for k in range(1, nd)]
-            got_n = comm.pack_exchange_next(next_pieces, 0)
-            halos0.update({
-                "n_r0": jnp.concatenate(got_n[0:2], axis=0),
-                "n_orig": got_n[2],
-                "n_acc0": got_n[3],
-                "n_acc0_r1": got_n[4],
-            })
-            for k in range(1, nd):
-                halos0[f"n_acc{k}"] = got_n[4 + k]
-            if fista:
-                base = 4 + nd
-                halos0["n_d0"] = got_n[base]
-                halos0["n_d0_r1"] = got_n[base + 1]
-                for k in range(1, nd):
-                    halos0[f"n_d{k}"] = got_n[base + 1 + k]
-            f0, l0 = comm.is_first(0), comm.is_last(0)
-        with_mse = opts.calculate_mse
-        outs = fused_pair_iteration(
-            orig, c.recon, c.accs, ds, rho1, rho2, lambda_inv, lam_mu,
-            fista=fista, interpret=interpret,
-            halos0=halos0, first0=f0, last0=l0,
-            halos1=halos1, first1=f1, last1=l1,
-            ref=reference_data if with_mse else None,
-            block_cap=opts.pair_block_cap,
-        )
-        recon2, accs2, ds2, bn1, dn1, dd1, bn2, dn2, dd2 = outs[:9]
-        sse1 = sse2 = None
-        if with_mse:
-            sse1, sse2 = outs[9], outs[10]
-        if grid2d:
-            from cytvdn_tpu.parallel.pairfix import repair_axis1_seams
-
-            recon2, accs2, ds2, \
-                (bn1, dn1, dd1, bn2, dn2, dd2), sse_fx = \
-                repair_axis1_seams(
-                    comm, orig, c.recon, c.accs, ds, recon2, accs2, ds2,
-                    rho1, rho2, lambda_inv, lam_mu,
-                    (bn1, dn1, dd1, bn2, dn2, dd2),
-                    ref=reference_data if with_mse else None,
-                    sse=(sse1, sse2) if with_mse else None)
-            if with_mse:
-                sse1, sse2 = sse_fx
-        if sharded:
-            bn1, bn2 = comm.allsum(bn1), comm.allsum(bn2)
-            dn1 = comm.allsum(dn1) / comm.allsum(dd1)
-            dn2 = comm.allsum(dn2) / comm.allsum(dd2)
-            dd1 = dd2 = jnp.ones((), jnp.float32)
-            if with_mse:
-                sse1, sse2 = comm.allsum(sse1), comm.allsum(sse2)
-        dv1 = (dn1 / dd1).astype(c.delta.dtype)
-        dv2 = (dn2 / dd2).astype(c.delta.dtype)
-        b_norm = (c.b_norm
-                  .at[c.i].set(bn1.astype(c.b_norm.dtype))
-                  .at[c.i + 1].set(bn2.astype(c.b_norm.dtype)))
-        delta_tr = (c.delta
-                    .at[c.i].set(dv1)
-                    .at[c.i + 1].set(dv2))
-        mse_tr = c.mse
-        if with_mse:
-            # the K=1 loop records sse AFTER each iteration at mse[i+1]
-            mse_tr = (c.mse
-                      .at[c.i + 1].set(sse1.astype(c.mse.dtype))
-                      .at[c.i + 2].set(sse2.astype(c.mse.dtype)))
-        new_c = _PhaseCarry(
-            i=c.i + 2,
-            done=(jnp.asarray(dv2 < stopping)
-                  if stopping is not None else c.done),
-            recon=recon2,
-            accs=accs2,
-            ds=ds2 if fista else c.ds,
-            b_norm=b_norm,
-            delta=delta_tr,
-            mse=mse_tr,
-            tk=c.tk,
-        )
-        if stopping is None:
-            return new_c, jnp.zeros((), bool)
-        # dv2 crossing: the pair ends at the converging iteration — exact,
-        # latch done (handled via new_c.done). dv1 crossing: the guard was
-        # beaten and the kernel computed one iteration past the stop —
-        # FLAG it; the outer block loop discards back to its checkpoint.
-        # The pre-pair carry must NOT be referenced here: keeping it live
-        # across the aliased kernel call forces a defensive copy of every
-        # state array per pair (measured ~2x on the stop path).
-        crossed1 = dv1 < stopping
-        return new_c, crossed1
-
-    if not run_blocked:
-        carry, _ = lax.while_loop(cond, body,
-                                  (carry, jnp.zeros((), bool)))
-        return carry
-
-    # Stop-aware runs: pairs run in blocks of _STOP_CKPT_PAIRS; the outer
-    # loop keeps ONE checkpoint of the carry per block (a single
-    # defensive copy when the block's first kernel call donates the
-    # checkpointed buffers). A guard beat discards the whole block and
-    # bails with the block-start state — bit-exact, since the K=1
-    # finisher redoes the discarded iterations (≤ 2·_STOP_CKPT_PAIRS,
-    # at most once per run) with the exact per-iteration stop check.
-    def inner_cond(cbl):
-        c, bail, limit = cbl
-        return jnp.logical_and(cond((c, bail)), c.i < limit)
-
-    def inner_body(cbl):
-        c, b, limit = cbl
-        c2, beat = body((c, b))
-        return c2, beat, limit
-
-    def outer_body(cb):
-        c, _ = cb
-        ckpt = c
-        c2, beat, _ = lax.while_loop(
-            inner_cond, inner_body,
-            (c, jnp.zeros((), bool),
-             c.i + jnp.int32(2 * _STOP_CKPT_PAIRS)))
-        out = lax.cond(beat, lambda: ckpt, lambda: c2)
-        return out, beat
-
-    carry, _ = lax.while_loop(cond, outer_body,
-                              (carry, jnp.zeros((), bool)))
-    return carry
-
-
-# strip-shrink rungs of the VMEM fallback ladder (bytes; see
-# vmem_fallback). 512K keeps >=4-column strips on flagship-tail shapes
-# (the measured (128,128,64,64) miscalibration compiles at its b1=16);
-# 128K is the last stop before surrendering the pair rate entirely.
-_FALLBACK_PAIR_CAPS = (512 * 1024, 128 * 1024)
-
-
-def _device_oom(err: Exception) -> bool:
-    """Compile-time device-memory exhaustion (Mosaic/XLA)."""
-    s = str(err)
-    return ("Ran out of memory in memory space" in s
-            or "RESOURCE_EXHAUSTED" in s)
-
-
-def vmem_fallback(opts: SolverOptions, call,
-                  knobs=("vmem_resident", "temporal_kstep",
-                         "temporal_pairs"),
-                  local_shape=None, plan_halo0=False):
-    """Run ``call(opts)``, degrading kernel choices on device-memory
-    compile failures instead of crashing.
-
-    ``knobs`` names the option flags to flip off in order; callers whose
-    context rules a path out entirely should omit its knob (e.g.
-    ``run_sharded`` passes only ``temporal_pairs`` — the resident kernel
-    never engages under a mesh, so flipping ``vmem_resident`` there
-    would waste a full failing recompile on an identical program).
-
-    The resident/pair kernels gate themselves on calibrated VMEM/HBM
-    budget models (kernels/resident.py::resident_plan,
-    kernels/temporal.py::pair_plan / pair_hbm_viable). A model
-    miscalibrated for an untested shape/compiler combination surfaces as
-    a compile-time RESOURCE_EXHAUSTED — this ladder turns each
-    multi-iteration kernel off in turn (resident first, then temporal
-    pairs; all are pure throughput choices with bit-identical results,
-    including under stopping — guard-beaten chunks/pairs are discarded
-    and redone exactly) and retries, so the worst case is the K=1
-    streaming path, not a crash. A genuine can't-fit failure (e.g. HBM
-    on an oversized cube) exhausts the ladder and re-raises.
-
-    Before flipping ``temporal_pairs`` off entirely, the ladder tries
-    SHRINKING the pair kernel's strips (``pair_block_cap`` 512K then
-    128K): the kernel is per-step-floor bound, so halved strips cost a
-    few percent while K=1 costs ~1.8x — and the one measured
-    miscalibration (4D FISTA at (128,128,64,64): Mosaic asks 164M of
-    128M VMEM at the model's b1=32) compiles and runs at b1=16. The
-    rung needs ``local_shape`` (the per-device data shape) to check a
-    smaller cap would actually change the block plan — callers that
-    don't pass it skip straight to the knob flips."""
-    import dataclasses
-    import warnings
-
-    def _shrunk_cap(attempt):
-        """Next strip cap that CHANGES the pair plan the run would
-        actually compile, or None. The plan is re-derived with the run's
-        own halo0 (``plan_halo0``, sharded callers) and with_mse
-        (``attempt.calculate_mse``) so the rung check matches the real
-        kernel's block plan — a default-flag plan could pick a cap that
-        changes nothing (wasted recompile) or miss one that helps.
-        Itemsize is fixed at 4: the pair kernel is float32-only
-        (pair_supported gates on dtype)."""
-        if local_shape is None:
-            return None
-        from cytvdn_tpu.kernels.temporal import pair_plan
-
-        def plan(cap):
-            return pair_plan(tuple(local_shape), 4, halo0=plan_halo0,
-                             with_mse=attempt.calculate_mse,
-                             block_cap=cap)
-
-        now = plan(attempt.pair_block_cap)
-        for cap in _FALLBACK_PAIR_CAPS:
-            if attempt.pair_block_cap and cap >= attempt.pair_block_cap:
-                continue
-            new = plan(cap)
-            if new is not None and new != now:
-                return cap
-        return None
-
-    attempt = opts
-    while True:
-        try:
-            return call(attempt)
-        except Exception as e:
-            if not _device_oom(e):
-                raise
-            knob = next(
-                (k for k in knobs if getattr(attempt, k)), None)
-            if knob == "temporal_pairs":
-                cap = _shrunk_cap(attempt)
-                if cap is not None:
-                    warnings.warn(
-                        f"device memory exhausted while compiling the "
-                        f"solver ({type(e).__name__}); retrying with "
-                        f"pair_block_cap={cap} (smaller pair-kernel "
-                        f"strips — results are identical, throughput "
-                        f"within a few percent)", stacklevel=2)
-                    attempt = dataclasses.replace(
-                        attempt, pair_block_cap=cap)
-                    continue
-            if knob is None:
-                raise
-            warnings.warn(
-                f"device memory exhausted while compiling the solver "
-                f"({type(e).__name__}); retrying with {knob}=False "
-                f"(kernel VMEM-gate miscalibration fallback — results "
-                f"are identical, throughput lower)", stacklevel=2)
-            attempt = dataclasses.replace(attempt, **{knob: False})
-
-
-def _paired_history_stop(carry: _PhaseCarry, i_stop) -> Array:
-    """Dynamic iteration cap for the K=1 prologue stop-aware pairing
-    needs: the paired loop's predictive guard engages once two positive
-    deltas are recorded ahead of ``carry.i``; absent that history (fresh
-    run, or a phase entered through an early-stop index jump), run two
-    K=1 iterations first so the guard never has to decide blind."""
-    d1 = carry.delta[jnp.maximum(carry.i - 1, 0)]
-    d2 = carry.delta[jnp.maximum(carry.i - 2, 0)]
-    hist = jnp.logical_and(carry.i >= 2,
-                           jnp.logical_and(d1 > 0, d2 > 0))
-    pro = jnp.where(hist, carry.i, carry.i + 2).astype(jnp.int32)
-    return jnp.minimum(jnp.asarray(i_stop, jnp.int32), pro)
-
-
 def run_solver(
     orig: Array,
     lambda_inv: Array,
@@ -1331,127 +381,27 @@ def run_solver(
     dtype = orig.dtype
     lossy = opts.lossy_duals and opts.iterations_fista > 0
     if lossy:
-        # opt-in bf16 HBM storage of the FISTA shadow duals (~19% of
-        # streaming FISTA traffic; measured drift ~6.8e-4 rel-L2,
-        # EXPERIMENT_BF16_DUALS.json). Compute stays f32; the kernels
-        # widen on load and round on writeback at a PER-ITERATION
-        # cadence in every path (the pair kernel quantizes iteration-1
-        # duals mid-pair in VMEM, temporal.py::qd1), so pair ≡ K=1
-        # bitwise and the chunk/checkpoint state invariant holds for
-        # lossy runs too (tests/test_lossy.py). Sharded runs (round 5):
-        # the d state stays bf16 per shard; seam/halo d slabs widen
-        # bf16→f32 at the pack sites (exact) and the pair kernel's seam
-        # recomputes apply the same qd1 quantization the owning shard
-        # does, so lossy mesh ≡ lossy single-device bitwise — the same
-        # invariant exact mode carries (tests/test_lossy.py).
+        # opt-in bfloat16 storage of the FISTA shadow duals: compute stays
+        # f32, ``d`` rounds on every store (the same cadence on the
+        # single-device, mesh, chunked and out-of-core paths, so lossy
+        # runs keep the chunk/checkpoint and mesh ≡ single-device
+        # invariants, tests/test_lossy.py)
         if dtype != jnp.float32:
             raise ValueError("lossy_duals requires float32 data")
     if reference_data is not None and reference_data.dtype != dtype:
-        # normalize ONCE at entry: the reference enters Pallas kernels
-        # (the resident MSE window, the pair kernel's SSE operand) whose
-        # gates check only the datacube dtype — an f64 reference next to
-        # an f32 cube (numpy's default under x64) would otherwise reach
-        # Mosaic, which cannot lower f64 on TPU (kernels/fused.py).
-        # The reference computes SSE in the cube's dtype (utils.pyx).
+        # normalize ONCE at entry: an f64 reference next to an f32 cube
+        # (numpy's default under x64) computes SSE in the cube's dtype,
+        # as the reference does (utils.pyx)
         reference_data = reference_data.astype(dtype)
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
     if i_stop is None:
         i_stop = n_total
 
-    # once-per-run axis permutation to a lane-dense layout for the fused
-    # kernel (see _resolve_perm); per-element results are exact under
-    # permutation, only reduction order (traces) can differ in the last ulp
-    perm = _resolve_perm(opts, orig.shape, dtype, comm)
-    if perm is not None:
-        inv_perm = tuple(int(i) for i in np.argsort(perm))
-        paxes = list(perm)
-        orig = jnp.transpose(orig, perm)
-        lambda_inv = lambda_inv[jnp.asarray(paxes)]
-        lam_mu = lam_mu[jnp.asarray(paxes)]
-        if reference_data is not None:
-            reference_data = jnp.transpose(reference_data, perm)
-        if state is not None:
-            state = dict(state)
-            state["recon"] = jnp.transpose(state["recon"], perm)
-            # work-axis k's accumulator is the user accumulator of axis
-            # perm[k], transposed into work orientation
-            state["accs"] = tuple(
-                jnp.transpose(state["accs"][perm[k]], perm)
-                for k in range(opts.ndim)
-            )
-            if n_f and len(state.get("ds", ())):
-                state["ds"] = tuple(
-                    jnp.transpose(state["ds"][perm[k]], perm)
-                    for k in range(opts.ndim)
-                )
-
     # schedule computed on host in float64 then stored at the data dtype —
     # bitwise identical to the reference passing a Python float into a
     # ``_float``-typed kernel argument (reference cyTVDN.py:153-156).
     tk_ratios = jnp.asarray(fista_tk_ratios(n_f), dtype=dtype)
-
-    def _unperm(out: Dict[str, Array]) -> Dict[str, Array]:
-        if perm is None:
-            return out
-        out["recon"] = jnp.transpose(out["recon"], inv_perm)
-        if "accs" in out:
-            # user-axis j's accumulator lives at work axis inv_perm[j]
-            out["accs"] = tuple(
-                jnp.transpose(out["accs"][inv_perm[j]], inv_perm)
-                for j in range(opts.ndim)
-            )
-            if len(out["ds"]):
-                out["ds"] = tuple(
-                    jnp.transpose(out["ds"][inv_perm[j]], inv_perm)
-                    for j in range(opts.ndim)
-                )
-        return out
-
-    # VMEM-resident fast path: fresh uncapped runs whose whole state fits
-    # on-chip execute every iteration in one pallas launch (bit-identical
-    # to the streaming paths; see kernels/resident.py). Hybrid schedules
-    # with keep_state stay on the streaming path (their returned ds must
-    # be frozen through the unaccelerated phase).
-    if (
-        state is None
-        and isinstance(i_stop, int)
-        and i_stop >= n_total
-        and n_total > 0
-        and not (keep_state and n_f and n_u)
-    ):
-        r_ok, r_interp = _resolve_resident(opts, orig.shape, dtype, comm)
-        if r_ok:
-            from cytvdn_tpu.kernels.resident import resident_solve
-
-            rhos = np.zeros((n_total,), np.float64)
-            if n_f:
-                rhos[:n_f] = fista_tk_ratios(n_f)[:n_f]
-            routs = resident_solve(
-                orig, jnp.asarray(rhos, dtype), lambda_inv, lam_mu,
-                n_iters=n_total, fista=bool(n_f), interpret=r_interp,
-                bc=int(opts.bc_mode),
-                ref=reference_data if opts.calculate_mse else None,
-                iso_r=opts.isotropic_R, iso_q=opts.isotropic_Q,
-            )
-            recon_r, accs_r, ds_r, bn_r, dnum_r, dden_r = routs[:6]
-            out = {
-                "recon": recon_r,
-                "b_norm": bn_r.astype(dtype),
-                "delta": (dnum_r / dden_r).astype(dtype),
-                "iterations_run": jnp.asarray(n_total, jnp.int32),
-                "early_stopped": jnp.zeros((), bool),
-            }
-            if opts.calculate_mse:
-                sse0 = ops.sum_square_error(orig, reference_data)
-                out["mse"] = jnp.concatenate(
-                    [sse0.reshape(1), routs[6]]).astype(dtype)
-            if keep_state:
-                out["accs"] = accs_r
-                out["ds"] = ds_r if (n_f and not n_u) else ()
-                out["i"] = jnp.asarray(n_total, jnp.int32)
-                out["tk"] = jnp.ones((), jnp.float32)
-            return _unperm(out)
 
     d_dt = jnp.bfloat16 if lossy else dtype
     if state is not None:
@@ -1491,41 +441,8 @@ def run_solver(
         tk=tk0,
     )
 
-    temporal_ok = _resolve_temporal(opts, orig.shape, dtype, comm)
-    if temporal_ok:
-        _, t_interpret = _resolve_fused(opts, orig.shape, dtype, comm)
-
     i_stop2 = jnp.asarray(i_stop, jnp.int32)
-    rc_ok, rc_interpret = _resolve_resident_chunks(
-        opts, orig.shape, dtype, comm)
-    stop_aware = (temporal_ok or rc_ok) \
-        and opts.stopping_relative_change is not None
     if n_f:
-        if stop_aware:
-            carry = _run_phase(
-                True, n_f, carry, orig, tk_ratios, lambda_inv, lam_mu,
-                opts, comm, reference_data,
-                _paired_history_stop(carry, i_stop),
-            )
-        if rc_ok:
-            carry = _run_phase_resident(
-                True, n_f, carry, orig, tk_ratios, lambda_inv, lam_mu,
-                opts, rc_interpret, i_stop, reference_data,
-            )
-        if temporal_ok:
-            # n_f >= k: a shorter phase can't run a K-pass, and tracing
-            # the body would slice k momentum ratios out of an
-            # n_f-length schedule
-            k_f = _resolve_kstep(opts, orig.shape, dtype, comm, True)
-            if k_f and n_f >= k_f:
-                carry = _run_phase_kstep(
-                    True, n_f, carry, orig, tk_ratios, lambda_inv,
-                    lam_mu, opts, t_interpret, i_stop, k_f,
-                )
-            carry = _run_phase_paired(
-                True, n_f, carry, orig, tk_ratios, lambda_inv, lam_mu,
-                opts, t_interpret, i_stop, comm, reference_data,
-            )
         carry = _run_phase(
             True, n_f, carry, orig, tk_ratios, lambda_inv, lam_mu, opts,
             comm, reference_data, i_stop,
@@ -1552,28 +469,6 @@ def run_solver(
         if not keep_state:
             carry = carry._replace(ds=())
     if n_u:
-        if stop_aware:
-            carry = _run_phase(
-                False, n_total, carry, orig, tk_ratios, lambda_inv,
-                lam_mu, opts, comm, reference_data,
-                _paired_history_stop(carry, i_stop2),
-            )
-        if rc_ok:
-            carry = _run_phase_resident(
-                False, n_total, carry, orig, tk_ratios, lambda_inv,
-                lam_mu, opts, rc_interpret, i_stop2, reference_data,
-            )
-        if temporal_ok:
-            k_u = _resolve_kstep(opts, orig.shape, dtype, comm, False)
-            if k_u and n_u >= k_u:
-                carry = _run_phase_kstep(
-                    False, n_total, carry, orig, tk_ratios, lambda_inv,
-                    lam_mu, opts, t_interpret, i_stop2, k_u,
-                )
-            carry = _run_phase_paired(
-                False, n_total, carry, orig, tk_ratios, lambda_inv, lam_mu,
-                opts, t_interpret, i_stop2, comm, reference_data,
-            )
         carry = _run_phase(
             False, n_total, carry, orig, tk_ratios, lambda_inv, lam_mu, opts,
             comm, reference_data, i_stop2,
@@ -1593,4 +488,4 @@ def run_solver(
         out["ds"] = carry.ds
         out["i"] = carry.i
         out["tk"] = carry.tk
-    return _unperm(out)
+    return out

@@ -1,26 +1,25 @@
-"""Out-of-core solver: datacubes whose iteration state exceeds one chip's
-HBM stream through the device in axis-0 slabs.
+"""Out-of-core solver: datacubes whose iteration state exceeds one card's
+device memory stream through the device in axis-0 slabs.
 
-The 256²×128² 4D FISTA target holds ~43 GB of state (SURVEY.md §7 hard
-part 2) — impossible in one v5e's 16 GB HBM. The reference's only answer
-is MPI scale-out; here a single chip can also run it with state resident
-in host RAM:
+The reference's only answer to a cube larger than one node is MPI
+scale-out; here a single card can also run it with state resident in host
+RAM:
 
 - State lives in numpy arrays; each iteration sweeps slabs of S rows
   through the device in order.
-- Each slab is one :func:`fused_iteration` call with **operand halos** —
-  the same mechanism the shard_map path uses (kernels/fused.py). Because
+- Each slab is one engine step (``engine.step_partials``) with **operand
+  halos** — the same mechanism the shard_map path uses. Because
   slabs are processed in ascending order, the +1 neighbor's pre-update
   state is still untouched in host RAM, and the -1 neighbor's pre-update
   state is read before its write-back: the math is *identical* to the
   in-core run (tested to f32 equality).
 - **Software pipeline**: slab i+1's host→device transfers are enqueued
   while slab i computes and slab i-1's results stream back — JAX's async
-  dispatch overlaps all three. Device inputs are donated, so the pallas
-  in-place aliasing holds on device (≈11 slab-size buffers per slab
-  generation; THREE generations are live at the pipeline's peak — pending
-  outputs, executing, prefetched — so size slabs for ~33 slab-buffers of
-  HBM).
+  dispatch overlaps all three. Device inputs are donated, so XLA updates
+  the state in place (≈11 slab-size buffers per slab generation; THREE
+  generations are live at the pipeline's peak — pending outputs,
+  executing, prefetched — so size slabs for ~33 slab-buffers of device
+  memory).
 - bnorm/delta partials are summed across slabs host-side (deterministic);
   early stopping works per iteration.
 
@@ -40,98 +39,79 @@ from cytvdn_tpu.config import BCMode, SolverOptions, normalize_iterations
 from cytvdn_tpu.solver.engine import fista_tk_ratios
 
 
-def _make_temporal_chunk():
-    """K fused iterations on one device-resident extended slab.
+def _make_temporal_chunk(opts: SolverOptions):
+    """K engine iterations on one device-resident extended slab.
 
     Temporal blocking (trapezoidal tiling): the slab is loaded with a
     K-row margin on each interior side; each on-device iteration lets
     boundary garbage creep exactly one row inward from the margins (the
     stencil's light cone is ±1 row/iteration), so after K iterations the
     core rows are bit-identical to the serial sweep while host↔device
-    traffic per iteration drops K×. ``halos=None`` (single-device JZ
-    edges) is exactly right: at true cube edges it IS the boundary
-    condition, at interior margin edges its wrongness is confined to the
-    discarded margin.
+    traffic per iteration drops K×. The axis-0 operand halos are the
+    cube's own Jia-Zhao edges: a zero forward halo (the global leading
+    accumulator slab is identically zero) and the slab's own first row
+    backward — exact at true cube edges, and confined to the discarded
+    margin elsewhere.
 
     Returns ``(recon, accs, ds, recon_prev)`` after the K scanned
     iterations — ``recon_prev`` (the K-1st recon) lets the caller compute
     the true iteration-(T+K) delta over the core region.
     """
     import jax
+    import jax.numpy as jnp
     from jax import lax
 
-    from cytvdn_tpu.kernels.fused import fused_iteration
+    from cytvdn_tpu.solver.engine import HaloComm, step_partials
 
-    @functools.partial(jax.jit,
-                       static_argnames=("fista", "interpret", "with_d"),
+    @functools.partial(jax.jit, static_argnames=("fista",),
                        donate_argnums=(1, 2, 3))
-    def chunk(orig, recon, accs, ds, tk_ratios, li, lm,
-              fista, interpret, with_d):
-        from cytvdn_tpu.kernels.temporal import (
-            fused_pair_iteration,
-            pair_supported,
-        )
-
-        k = tk_ratios.shape[0]
-        r, a, d = recon, accs, ds
-        # run the bulk as K=2 temporal pairs (two on-device iterations per
-        # HBM pass of the slab — bit-identical, see kernels/temporal.py);
-        # keep the last 1-2 iterations on the K=1 path so the serial scan
-        # naturally yields recon_prev (the K-1st recon, needed for the
-        # true iteration-(T+K) delta)
-        n_pairs = max((k - 1) // 2, 0)
-        if n_pairs and pair_supported(orig.shape, orig.dtype,
-                                      BCMode.JIA_ZHAO):
-            def pbody(carry, tks):
-                rr, aa, dd = carry
-                r2, a2, d2 = fused_pair_iteration(
-                    orig, rr, aa, dd if with_d else None, tks[0], tks[1],
-                    li, lm, fista=fista, interpret=interpret,
-                )[:3]
-                return (r2, a2, d2 if with_d else ()), None
-
-            (r, a, d), _ = lax.scan(
-                pbody, (r, a, d),
-                tk_ratios[:2 * n_pairs].reshape(n_pairs, 2),
-            )
-            rest = tk_ratios[2 * n_pairs:]
-        else:
-            rest = tk_ratios
+    def chunk(orig, recon, accs, ds, tk_ratios, li, lm, fista):
+        comm = HaloComm(next={0: jnp.zeros_like(recon[:1])})
 
         def body(carry, tk):
-            rr, aa, dd, _ = carry
-            r2, a2, d2, _, _, _ = fused_iteration(
-                orig, rr, aa, dd if with_d else None, tk, li, lm,
-                fista=fista, interpret=interpret, halos=None,
-            )
-            return (r2, a2, d2 if with_d else (), rr), None
+            r, a, d, _ = carry
+            r2, a2, d2 = step_partials(
+                orig, r, a, d if fista else None, tk if fista else None,
+                li, lm, opts, comm)[:3]
+            return (r2, a2, d2 if fista else (), r), None
 
-        (r, a, d, r_prev), _ = lax.scan(body, (r, a, d, r), rest)
+        (r, a, d, r_prev), _ = lax.scan(
+            body, (recon, accs, ds, recon), tk_ratios)
         return r, a, d, r_prev
 
     return chunk
 
 
-def _make_step():
-    """Donating jitted wrapper around :func:`fused_iteration`: the device
-    copies of recon/accs/ds are consumed by the call, so the kernel's
-    input→output aliasing holds on device and a slab costs ~11 slab-size
-    buffers instead of ~28 (without donation XLA must defensively copy
-    every aliased operand — enough to OOM the chip at production slab
-    sizes)."""
+def _make_step(opts: SolverOptions):
+    """Donating jitted engine step for one slab with explicit axis-0
+    operand halos: ``prev0`` (the -1 neighbor's last pre-update recon
+    row) and the +1 neighbor's first *updated* axis-0 accumulator row,
+    recomputed here from its pre-update state (``next0_recon``,
+    ``next0_acc``, ``next0_d``) with the same arithmetic as that slab's
+    own update — so a slab sweep is bit-identical to the in-core run.
+    The device copies of recon/accs/ds are consumed by the call, so XLA
+    updates them in place."""
     import jax
 
-    from cytvdn_tpu.kernels.fused import fused_iteration
+    from cytvdn_tpu import ops
+    from cytvdn_tpu.solver.engine import HaloComm, step_partials
 
-    @functools.partial(jax.jit,
-                       static_argnames=("fista", "interpret", "with_d"),
+    @functools.partial(jax.jit, static_argnames=("fista",),
                        donate_argnums=(1, 2, 3))
-    def step(orig, recon, accs, ds, tk_ratio, li, lm, halos,
-             fista, interpret, with_d):
-        return fused_iteration(
-            orig, recon, accs, ds if with_d else None, tk_ratio, li, lm,
-            fista=fista, interpret=interpret, halos=halos,
-        )
+    def step(orig, recon, accs, ds, tk_ratio, li, lm, halos, fista):
+        own_last = recon[-1:]
+        if fista:
+            nxt = ops.accumulator_update_fista(
+                halos["next0_recon"], halos["next0_acc"], halos["next0_d"],
+                tk_ratio, 0, li[0], opts.bc_mode, own_last)[0]
+        else:
+            nxt = ops.accumulator_update(
+                halos["next0_recon"], halos["next0_acc"], 0, li[0],
+                opts.bc_mode, own_last)[0]
+        comm = HaloComm(prev={0: halos["prev0"]}, next={0: nxt})
+        return step_partials(
+            orig, recon, accs, ds if fista else None,
+            tk_ratio if fista else None, li, lm, opts, comm)
 
     return step
 
@@ -253,9 +233,9 @@ def _neighbor_band_exchange(nproc: int, n_arrays: int, k: int,
     ``[:, k:]`` = its RIGHT neighbor's head band (edge processes receive
     ``ppermute``'s zero fill in the missing slot; their ghost rows don't
     exist, so it is never read). Unlike an allgather this moves each
-    band only to the one process that needs it — on a pod the transfers
-    ride the same XLA collective machinery as the in-core halos (ICI
-    where neighbors share it, DCN otherwise), and wire bytes per process
+    band only to the one process that needs it — the transfers ride the
+    same XLA collective machinery as the in-core halos, and wire bytes per
+    process
     per sweep are O(1) in nproc.
 
     Reference analog: the MPI ranks' point-to-point boundary sends
@@ -301,7 +281,7 @@ def _neighbor_band_exchange(nproc: int, n_arrays: int, k: int,
 
 def _d_store_dtype(opts: SolverOptions, n_f: int):
     """Host storage dtype of the FISTA shadow duals: bfloat16 under
-    ``lossy_duals`` (halves the d arrays' host RAM and their PCIe/DCN
+    ``lossy_duals`` (halves the d arrays' host RAM and their transfer
     bytes per sweep; the device kernels compute f32 and round on
     writeback — the same cadence as in-core lossy runs)."""
     if opts.lossy_duals and n_f:
@@ -339,8 +319,8 @@ def solve_outofcore(
 ) -> Dict[str, np.ndarray]:
     """Run the full schedule with host-resident state, streaming slabs.
 
-    Requirements: float32, Jia-Zhao BCs, anisotropic axes (the fused
-    kernel's domain); each slab must have ≥2 rows.
+    Requirements: float32, Jia-Zhao BCs, anisotropic axes; each slab must
+    have ≥2 rows.
 
     ``reference`` (with ``opts.calculate_mse``): per-iteration SSE vs the
     host-resident reference cube (reference cyTVDN/cyTVDN.py:176-181),
@@ -356,8 +336,6 @@ def solve_outofcore(
     import jax
     import jax.numpy as jnp
 
-    from cytvdn_tpu.kernels.fused import fused_iteration, fused_supported
-
     if opts.bc_mode != BCMode.JIA_ZHAO or opts.isotropic_R or opts.isotropic_Q:
         raise ValueError("out-of-core mode covers Jia-Zhao anisotropic runs")
     orig = np.ascontiguousarray(orig)
@@ -369,11 +347,6 @@ def solve_outofcore(
     bounds = _slab_bounds(n0, n_slabs)
     if min(b - a for a, b in bounds) < 2:
         raise ValueError("slabs must have at least 2 rows")
-    for a, b in bounds:
-        if not fused_supported((b - a,) + orig.shape[1:], np.dtype(np.float32),
-                               opts.bc_mode):
-            raise ValueError(f"slab shape {(b - a,) + orig.shape[1:]} "
-                             "unsupported by the fused kernel")
 
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
     n_total = n_f + n_u
@@ -384,7 +357,7 @@ def solve_outofcore(
     accs = [np.zeros_like(orig) for _ in range(ndim)]
     # lossy_duals: the host-resident shadow duals live at bf16 — half
     # the d arrays' host RAM and half their PCIe bytes per sweep (the
-    # kernels compute f32 and round on writeback, same as in-core)
+    # engine computes f32 and rounds on writeback, same as in-core)
     d_dt = _d_store_dtype(opts, n_f)
     ds = [np.zeros(orig.shape, d_dt) for _ in range(ndim)] if n_f else None
     b_norm = np.zeros(n_total, np.float32)
@@ -408,16 +381,13 @@ def solve_outofcore(
     li = jnp.asarray(lambda_inv.astype(np.float32))
     lm = jnp.asarray(lam_mu.astype(np.float32))
 
-    interpret = jax.default_backend() != "tpu"
     it_run = start
     stopped = resumed_stop
-    step = _make_step()
+    step = _make_step(opts)
     put = jax.device_put
 
-    # device-resident zero halos, allocated once (per-slab shapes)
+    # device-resident zero halo row, allocated once
     zero_row = jnp.zeros((1,) + orig.shape[1:], jnp.float32)
-    zero_cols = [jnp.zeros((b - a, 1) + orig.shape[2:], jnp.float32)
-                 for a, b in bounds]
 
     def load_slab(si: int, fista: bool, prev_last_old):
         """Enqueue slab ``si``'s host→device transfers (inputs + halos)
@@ -442,23 +412,19 @@ def solve_outofcore(
             next0_recon = r[-1:]
             next0_acc = zero_row
             next0_d = zero_row if fista else None
-        # axis 1 is never slab-split: its halos are the JZ edge values
+        # only axis 0 is slab-split; the other axes keep their BC edges
         halos = {
             "prev0": put(np.ascontiguousarray(prev0)),
-            "prev1": put(np.ascontiguousarray(recon[sl, 0:1])),
             "next0_recon": put(np.ascontiguousarray(next0_recon)),
             "next0_acc": put(next0_acc if next0_acc is zero_row
                              else np.ascontiguousarray(next0_acc)),
-            "next1_recon": put(np.ascontiguousarray(recon[sl, -1:])),
-            "next1_acc": zero_cols[si],
         }
         if fista:
             # halo d rows widen to f32 host-side (exact; bf16 under
-            # lossy_duals) — the kernel's halo operands are uniform f32
+            # lossy_duals) — the recomputed halo row is f32 either way
             halos["next0_d"] = put(next0_d if next0_d is zero_row
                                    else np.ascontiguousarray(
                                        next0_d.astype(np.float32)))
-            halos["next1_d"] = zero_cols[si]
         dev = {
             "orig": put(orig[sl]),
             "recon": put(r),
@@ -499,7 +465,7 @@ def solve_outofcore(
             out = step(
                 dev["orig"], dev["recon"], dev["accs"], dev["ds"],
                 tk, li, lm, dev["halos"],
-                fista=fista, interpret=interpret, with_d=fista,
+                fista=fista,
             )
             prev_last_old = dev["prev_last_old"]
             if si + 1 < len(bounds):
@@ -595,8 +561,6 @@ def solve_outofcore_temporal(
     """
     import jax
 
-    from cytvdn_tpu.kernels.fused import fused_supported
-
     if temporal_k <= 1:
         return solve_outofcore(orig, lambda_inv, lam_mu, opts, n_slabs,
                                reference=reference,
@@ -622,12 +586,10 @@ def solve_outofcore_temporal(
         )
     ext = [(max(a - K, 0), min(b + K, n0), a, b) for a, b in bounds]
     for lo, hi, _, _ in ext:
-        if hi - lo < 2 or not fused_supported(
-            (hi - lo,) + orig.shape[1:], np.dtype(np.float32), opts.bc_mode
-        ):
+        if hi - lo < 2:
             raise ValueError(
                 f"extended slab shape {(hi - lo,) + orig.shape[1:]} "
-                "unsupported by the fused kernel"
+                "needs at least 2 rows"
             )
 
     n_f, n_u = opts.iterations_fista, opts.iterations_unacc
@@ -661,8 +623,7 @@ def solve_outofcore_temporal(
 
     li = jnp.asarray(lambda_inv.astype(np.float32))
     lm = jnp.asarray(lam_mu.astype(np.float32))
-    interpret = jax.default_backend() != "tpu"
-    chunk = _make_temporal_chunk()
+    chunk = _make_temporal_chunk(opts)
     put = jax.device_put
 
     @functools.partial(jax.jit, static_argnames=("off", "clen"))
@@ -693,7 +654,7 @@ def solve_outofcore_temporal(
         for si in range(len(bounds)):
             out = chunk(dev["orig"], dev["recon"], dev["accs"], dev["ds"],
                         tks_d, li, lm,
-                        fista=fista, interpret=interpret, with_d=fista)
+                        fista=fista)
             if si + 1 < len(bounds):
                 dev = load_ext(si + 1, fista)
             if pending is not None:
@@ -783,10 +744,10 @@ def solve_outofcore_sharded_temporal(
     resume: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Out-of-core solve with each resident slab SHARDED over the local
-    devices: the BASELINE config-5 deployment shape (512²×256² on a
-    v5e-16: ~640 GiB of FISTA state admits no in-core decomposition, so
-    every host streams slabs from RAM while its chips split each slab on
-    axis 1 with ICI halo exchange).
+    devices: the BASELINE config-5 deployment shape (512²×256²: ~640 GiB
+    of FISTA state admits no in-core decomposition, so every host streams
+    slabs from RAM while its cards split each slab on axis 1 with halo
+    exchange).
 
     Mechanics: the host state is swept in axis-0 slabs with
     ``temporal_k``-row margins exactly like
@@ -876,31 +837,10 @@ def solve_outofcore_sharded_temporal(
 
     has_ds = n_f > 0  # ds are carried (frozen) through the unacc phase
 
-    # VMEM-gate fallback is handled HERE, not inside run_sharded: a
-    # degraded opts (temporal_pairs flipped off by a miscalibrated pair
-    # plan) is remembered across all 2 x n_slabs x n_sweeps calls, so a
-    # failing compile is paid once — not re-attempted (and re-warned)
-    # on every slab of every sweep
-    run_opts = {"opts": opts_run}
-
     def run_slab(orig_slab, state, i_stop):
-        from cytvdn_tpu.solver.engine import vmem_fallback
-
-        def call(o):
-            return run_sharded(
-                orig_slab, lambda_inv, lam_mu, o, shard=shard_t,
-                devices=devices, state=state, i_stop=i_stop,
-                keep_state=True, fallback=False), o
-
-        local = tuple(int(e) // int(w)
-                      for e, w in zip(orig_slab.shape, shard_t))
-        out, used = vmem_fallback(run_opts["opts"], call,
-                                  knobs=("temporal_pairs",),
-                                  local_shape=local,
-                                  plan_halo0=any(
-                                      int(w) > 1 for w in shard_t))
-        run_opts["opts"] = used
-        return out
+        return run_sharded(
+            orig_slab, lambda_inv, lam_mu, opts_run, shard=shard_t,
+            devices=devices, state=state, i_stop=i_stop, keep_state=True)
 
     def slab_state(si, t):
         lo, hi, _, _ = ext[si]
@@ -1046,10 +986,10 @@ def solve_outofcore_multihost(
 ) -> Dict[str, np.ndarray]:
     """MULTI-HOST out-of-core solve: each process streams ITS OWN axis-0
     row range of the host-resident state, sharding each resident slab
-    over its local chips — the full config-5 deployment shape on a real
-    pod slice (a v5e-16 spans multiple hosts, each holding a slice of
-    the ~640 GiB state in its own RAM; reference analog: the MPI ranks'
-    row-range ownership, mpi.py:130-153).
+    over its local cards — the full config-5 deployment shape across
+    several hosts, each holding a slice of the ~640 GiB state in its own
+    RAM (reference analog: the MPI ranks' row-range ownership,
+    mpi.py:130-153).
 
     ``orig_local`` holds only this process's rows; ``global_rows =
     (g0, g1, n0)`` declares the owned range and the global axis-0
@@ -1177,7 +1117,7 @@ def solve_outofcore_multihost(
         process-spanning mesh (``_neighbor_band_exchange``). All arrays'
         head+tail K-row bands ride a single collective, and each
         process's bands travel only to its two axis-0 neighbors — O(1)
-        DCN traffic per process per sweep, vs the O(nproc) an allgather
+        network traffic per process per sweep, vs the O(nproc) an allgather
         would move (at the config-5 geometry, 2K rows of a 512²×256²
         cube are ~1.3 GB/process: neighbor-only halves the wire bytes at
         nproc=2 and wins linearly from there). Host transient is
@@ -1269,26 +1209,10 @@ def solve_outofcore_multihost(
         rc, rp = r[off:off + clen], r_prev[off:off + clen]
         return bn, jnp.sum(jnp.abs(rc - rp)), jnp.sum(jnp.abs(rp))
 
-    run_opts = {"opts": opts_run}
-
     def run_slab(orig_slab, state, i_stop):
-        from cytvdn_tpu.solver.engine import vmem_fallback
-
-        def call(o):
-            return run_sharded(
-                orig_slab, lambda_inv, lam_mu, o, shard=shard_t,
-                devices=devices, state=state, i_stop=i_stop,
-                keep_state=True, fallback=False), o
-
-        local = tuple(int(e) // int(w)
-                      for e, w in zip(orig_slab.shape, shard_t))
-        out, used = vmem_fallback(run_opts["opts"], call,
-                                  knobs=("temporal_pairs",),
-                                  local_shape=local,
-                                  plan_halo0=any(
-                                      int(w) > 1 for w in shard_t))
-        run_opts["opts"] = used
-        return out
+        return run_sharded(
+            orig_slab, lambda_inv, lam_mu, opts_run, shard=shard_t,
+            devices=devices, state=state, i_stop=i_stop, keep_state=True)
 
     def slab_state(si, t):
         lo, hi, _, _ = ext[si]
@@ -1431,10 +1355,9 @@ def denoise_outofcore(
     :func:`solve_outofcore_temporal` for the trace/early-stop semantics).
 
     ``shard_w > 1`` additionally shards each resident slab over that many
-    local devices on axis 1 with ICI halo exchange — the BASELINE
-    config-5 deployment shape (a v5e-16 host streams slabs from RAM
-    while its 4 chips split each slab); ``shard_w=0`` uses all local
-    devices. See :func:`solve_outofcore_sharded_temporal`.
+    local devices on axis 1 with halo exchange — the BASELINE config-5
+    deployment shape (a host streams slabs from RAM while its cards split
+    each slab); ``shard_w=0`` uses all local devices. See :func:`solve_outofcore_sharded_temporal`.
 
     Returns ``(recon, b_norm, delta)`` like :func:`cytvdn_tpu.denoise`,
     plus the ``mse`` trace when ``reference_data`` is given (per

@@ -166,7 +166,7 @@ def load_state(path: str):
     into global arrays by ``run_sharded``), and a cross-process agreement
     check rejects mixed-generation parts.
     """
-    # read this process's own part when one exists (hosts of a pod need
+    # read this process's own part when one exists (hosts of a cluster need
     # not share a filesystem: each process saves and reloads locally);
     # otherwise the master (single-process saves, or process 0)
     proc = jax.process_index()

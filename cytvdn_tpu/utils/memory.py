@@ -1,4 +1,4 @@
-"""HBM/RAM-aware memory advisor — the reference's ``check_memory`` rebuilt
+"""Device-memory/RAM-aware memory advisor — the reference's ``check_memory`` rebuilt
 honestly (reference cyTVDN/cyTVDN.py:438-467).
 
 The reference's multipliers (13×/11× FISTA) disagree with its own driver
@@ -7,8 +7,8 @@ prints (9×/7×); the true live-array counts are (SURVEY.md §2.7):
 - 4D FISTA: 10 cube-size arrays (orig, recon, 4 accs, 4 shadow duals)
 - 4D unaccelerated: 6; 3D FISTA: 8; 3D unaccelerated: 5
 
-This version reports those true counts against both the accelerator's HBM
-(per device, when an accelerator is present) and host RAM.
+This version reports those true counts against both the accelerator's
+memory (per device, when an accelerator is present) and host RAM.
 """
 
 from __future__ import annotations
@@ -30,35 +30,14 @@ def _fmt(nbytes: float) -> str:
     return f"{nbytes:.1f} PiB"
 
 
-#: HBM per chip for known TPU generations (bytes), used when the runtime
-#: does not report memory stats (e.g. tunneled devices)
-_KNOWN_HBM = {
-    "v5 lite": 16 << 30,
-    "v5e": 16 << 30,
-    "v4": 32 << 30,
-    "v5p": 95 << 30,
-    "v6": 32 << 30,
-}
-
-
 def _device_memory() -> Optional[int]:
-    """Per-device accelerator memory in bytes, if discoverable."""
-    try:
-        import jax
+    """Per-device accelerator memory JAX may use (``bytes_limit``), or
+    None where the backend reports no memory statistics (the CPU)."""
+    import jax
 
-        dev = jax.devices()[0]
-        try:
-            stats = dev.memory_stats()
-        except Exception:
-            stats = None
-        if stats and "bytes_limit" in stats:
-            return int(stats["bytes_limit"])
-        kind = getattr(dev, "device_kind", "").lower()
-        for key, size in _KNOWN_HBM.items():
-            if key in kind:
-                return size
-    except Exception:
-        pass
+    stats = jax.devices()[0].memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
     return None
 
 
@@ -79,7 +58,7 @@ def _host_memory() -> Optional[int]:
 
 
 def check_memory(datacube: np.ndarray, n_devices: int = 1) -> List[List[str]]:
-    """Tabulate memory needed per algorithm vs available HBM and host RAM.
+    """Tabulate memory needed per algorithm vs device memory and host RAM.
 
     ``n_devices``: number of mesh devices the cube would be sharded over
     (per-device requirement scales as 1/n, plus negligible halo slabs).
@@ -96,7 +75,7 @@ def check_memory(datacube: np.ndarray, n_devices: int = 1) -> List[List[str]]:
         per_dev = total / max(n_devices, 1)
         marks = []
         if hbm is not None:
-            marks.append("HBM:" + ("✅" if per_dev < hbm else "❌"))
+            marks.append("device:" + ("✅" if per_dev < hbm else "❌"))
         if ram is not None:
             marks.append("RAM:" + ("✅" if total < ram else "❌"))
         return " ".join(marks) if marks else "?"
@@ -117,7 +96,8 @@ def check_memory(datacube: np.ndarray, n_devices: int = 1) -> List[List[str]]:
     lines = [header]
     if hbm is not None:
         lines.append(
-            f"Accelerator HBM per device: {_fmt(hbm)} × {n_devices} device(s)"
+            f"Accelerator memory per device: {_fmt(hbm)} × {n_devices} "
+            f"device(s)"
         )
     if ram is not None:
         lines.append(f"Available host RAM: {_fmt(ram)}")

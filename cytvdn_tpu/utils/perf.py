@@ -2,93 +2,70 @@
 
 The workload is memory-bandwidth-bound (O(1) flops/voxel/pass — the
 reference author's own characterization, reference README.md:114), so
-throughput is bytes-touched per iteration vs HBM bandwidth. This module
-encodes the per-backend traffic models used to judge how close a measured
-run is to speed-of-light.
+throughput is bytes-touched per iteration vs device-memory bandwidth. This
+module encodes the per-path traffic models used to judge how close a
+measured run is to speed-of-light.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
-#: published per-chip HBM bandwidth (bytes/s)
-HBM_BW = {
-    "v5 lite": 819e9,
-    "v5e": 819e9,
-    "v4": 1228e9,
-    "v5p": 2765e9,
+#: published peak device-memory bandwidth (bytes/s), keyed by
+#: ``jax.Device.device_kind``. Source: NVIDIA H100 Tensor Core GPU
+#: datasheet, SXM form factor (80 GB HBM3 at 3.35 TB/s).
+PEAK_BW = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
 }
 
-#: measured practical bandwidth for looped read-modify-write workloads on
-#: the bench chip. Round-2 note: round 1's lower numbers (425-560 GB/s
-#: saxpy, ~470 kernel) were partly the lane-padding tax on non-128-lane
-#: shapes; with lane-dense layouts the fused kernel sustains ~590-600
-#: GB/s effective (~72% of the 819 GB/s spec peak) on both 3D and 4D —
-#: use this, not the spec peak, when judging kernel efficiency
-PRACTICAL_BW = {"v5e": 600e9, "v5 lite": 600e9}
+
+def peak_bandwidth(device_kind: str) -> float:
+    """Published peak bandwidth of ``device_kind``; an unknown device is an
+    error, never a default."""
+    try:
+        return PEAK_BW[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published bandwidth for device kind {device_kind!r}; "
+            f"known: {sorted(PEAK_BW)}") from None
 
 
-def traversals_per_iteration(ndim: int, fista: bool, backend: str) -> float:
+def traversals_per_iteration(ndim: int, fista: bool, model: str) -> float:
     """Cube-size array read+write traversals per full TV iteration.
 
-    - ``fused`` (single Pallas pass): reads orig, recon, n accs [, n ds];
-      writes recon, n accs [, n ds]  →  4n+3 (FISTA) / 2n+3 (plain).
-    - ``xla`` (two fused XLA passes): the accumulator pass re-reads the
-      accumulators in the reconstruction pass → ~(5n+4)/(3n+4).
-    - ``pair`` (K=2 temporally-blocked Pallas kernel): two iterations
-      per pass of the fused kernel's traffic, plus ~1 traversal/iter of
-      seam-band gathers → (4n+3)/2+1 / (2n+3)/2+1.
-    - ``kstep:K`` (generalized K-iteration staircase, single-strip
-      layouts — kernels/kstep.py): K iterations per pass of the fused
-      kernel's traffic, NO seam gathers → (4n+3)/K / (2n+3)/K.
+    - ``one_pass`` (the floor): reads orig, recon, n accs [, n ds]; writes
+      recon, n accs [, n ds]  →  4n+3 (FISTA) / 2n+3 (plain).
+    - ``two_pass`` (the GPU step, ``kernels/step.py``): the accumulator
+      pass reads recon and rewrites the duals (4n+1 / 2n+1), the
+      reconstruction pass reads orig, recon and the n accumulators and
+      writes recon (n+3)  →  5n+4 / 3n+4.
     - ``reference``: per-kernel traversals of the Cython loops
       (SURVEY.md §3.1): 22 for 4D FISTA.
     """
     n = ndim
-    if backend.startswith("kstep:"):
-        k = int(backend.split(":", 1)[1])
-        return ((4 * n + 3) / k) if fista else ((2 * n + 3) / k)
-    if backend == "pair":
-        return ((4 * n + 3) / 2 + 1) if fista else ((2 * n + 3) / 2 + 1)
-    if backend == "fused":
+    if model == "one_pass":
         return (4 * n + 3) if fista else (2 * n + 3)
-    if backend == "xla":
+    if model == "two_pass":
         return (5 * n + 4) if fista else (3 * n + 4)
-    if backend == "reference":
+    if model == "reference":
         return (5 * n + 2) if fista else (3 * n + 2)
-    raise ValueError(backend)
+    raise ValueError(model)
 
 
 def speed_of_light(
     shape: Tuple[int, ...],
+    device_kind: str,
     fista: bool = True,
-    backend: str = "fused",
+    model: str = "one_pass",
     itemsize: int = 4,
-    chip: str = "v5e",
 ) -> float:
-    """Upper-bound voxel-updates/sec for a backend on a chip."""
-    trav = traversals_per_iteration(len(shape), fista, backend)
-    return HBM_BW[chip] / (trav * itemsize)
+    """Upper-bound voxel-updates/sec for a traffic model on a device."""
+    trav = traversals_per_iteration(len(shape), fista, model)
+    return peak_bandwidth(device_kind) / (trav * itemsize)
 
 
-def efficiency(measured_vox_per_sec: float, shape, fista=True,
-               backend="fused", chip="v5e") -> float:
+def efficiency(measured_vox_per_sec: float, shape, device_kind: str,
+               fista=True, model="one_pass") -> float:
     """Fraction of the traffic-model speed-of-light achieved."""
     return measured_vox_per_sec / speed_of_light(
-        tuple(shape), fista, backend, chip=chip)
-
-
-def practical_speed_of_light(
-    shape: Tuple[int, ...],
-    fista: bool = True,
-    backend: str = "pair",
-    itemsize: int = 4,
-    chip: str = "v5e",
-) -> float:
-    """Voxel-updates/sec the backend's traffic model reaches at the
-    chip's *measured sustained* bandwidth (PRACTICAL_BW) — the realistic
-    target a healthy kernel should sit near, used for the bench harness's
-    per-config regression floors."""
-    trav = traversals_per_iteration(len(shape), fista, backend)
-    bw = PRACTICAL_BW.get(chip, HBM_BW[chip] * 0.72)
-    return bw / (trav * itemsize)
+        tuple(shape), device_kind, fista, model)

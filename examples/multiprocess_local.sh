@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # True multi-process smoke test — 2 Python processes x 4 virtual CPU
 # devices joined by jax.distributed over localhost (gloo), the same code
-# path a multi-host TPU pod takes over DCN. The closest analog of the
+# path a multi-host GPU cluster takes. The closest analog of the
 # reference's local_MPI_example.sh, but it additionally verifies the
 # result bit-matches a single-process run, and exercises a
 # kill-mid-run + checkpoint-resume cycle (the reference restarts a

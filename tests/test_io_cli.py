@@ -165,7 +165,7 @@ def test_cli_sharded(tmp_path):
 
 def test_cli_outofcore_sharded_single_host(tmp_path):
     """`cytv --out-of-core N --shard W` on ONE host (the documented
-    config-5 launch, examples/tpu_pod_launch.md) must load the cube and
+    config-5 launch) must load the cube and
     run the slab-sharded solver — a review-caught regression left
     `data=None` via the lazy-open branch and crashed."""
     from cytvdn_tpu.cli import main
@@ -453,3 +453,20 @@ def test_real_reference_parity():
         [sys.executable, _os.path.join(repo, "tools", "reference_parity.py")],
         capture_output=True, text=True)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+
+
+def test_write_emd_sharded(tmp_path):
+    """Region-writing a sharded device array without a host gather."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from cytvdn_tpu.io.emd import write_emd_sharded
+    from cytvdn_tpu.parallel.sharded import make_mesh
+
+    mesh, names = make_mesh((2, 4, 1))
+    data = (RNG.standard_normal((8, 8, 6)) * 0.5 + 2.0).astype(np.float32)
+    arr = jax.device_put(
+        jnp.asarray(data), NamedSharding(mesh, P("ax0", "ax1", None))
+    )
+    path = write_emd_sharded(str(tmp_path / "sharded.emd"), arr)
+    np.testing.assert_array_equal(read_emd(path), data)

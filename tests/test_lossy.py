@@ -1,26 +1,18 @@
 """Opt-in lossy bf16-duals mode (SolverOptions.lossy_duals).
 
-The mode stores the FISTA shadow duals (``d``) in bfloat16 in HBM while
-all compute stays float32 — EXPERIMENT_BF16_DUALS.json measured the
-drift (~6.8e-4 rel-L2) and ruled it out as a default; these tests pin
-the shipped mode's semantics:
+The mode stores the FISTA shadow duals (``d``) in bfloat16 while all
+compute stays float32; these tests pin the shipped mode's semantics:
 
-- the rounding cadence is per-iteration in EVERY execution path: the
-  K=1 fused kernel rounds ``d`` at each writeback, and the K=2 pair
-  kernel quantizes iteration-1 duals to the bf16 grid mid-pair in VMEM
-  (kernels/temporal.py::qd1) — so the CLAUDE.md state invariant (state
-  bit-exact across chunking/checkpoint/temporal-pairing choices) holds
-  for lossy runs too. Each path is pinned against an explicit ops-path
+- the rounding cadence is per-iteration in EVERY execution path
+  (single device, mesh, chunked, out-of-core), so the state invariant
+  (state bit-exact across chunking/checkpoint choices) holds for lossy
+  runs too. The engine is pinned against an explicit eager ops-path
   emulation at ulp tolerance (eager emulation vs the jitted engine
-  differ by fma/fusion contraction, so bit-equality is not expected
-  there) while the WRONG cadence sits 3 orders of magnitude away, and
-  pair vs K=1 engine runs are asserted BITWISE identical;
-- the end-to-end drift envelope stays within the measured saturation
-  (and is nonzero — the mode really is lossy);
-- invalid combinations are rejected loudly (mesh/f64/iso/non-JZ).
-
-All kernel runs use interpret mode (CPU CI); TPU compiled-kernel checks
-live in tests/manual_fused_check.py.
+  differ by fusion contraction, so bit-equality is not expected there)
+  while the WRONG cadence sits 3 orders of magnitude away;
+- the end-to-end drift is nonzero (the mode really is lossy) and
+  bounded;
+- invalid combinations are rejected loudly (f64/iso/non-JZ).
 """
 
 import numpy as np
@@ -44,9 +36,9 @@ def _cube(shape, seed=0):
 
 
 def _emulate(orig, li, lm, n_iter, round_every):
-    """Explicit ops-path FISTA run with ``d`` rounded to bf16 at every
-    ``round_every``-th iteration writeback — the exact lossy semantics
-    of the K=1 kernel (1) and the pair kernel (2)."""
+    """Explicit eager ops-path FISTA run with ``d`` rounded to bf16 at
+    every ``round_every``-th iteration writeback (1 = the shipped
+    semantics)."""
     ndim = orig.ndim
     tks = fista_tk_ratios(n_iter).astype(np.float32)
     recon = orig
@@ -73,41 +65,16 @@ def _emulate(orig, li, lm, n_iter, round_every):
 
 @pytest.mark.parametrize("shape", [(8, 6, 64), (6, 4, 6, 16)])
 def test_k1_lossy_cadence_vs_emulation(shape):
-    """K=1 fused kernel with bf16 ds == ops emulation rounding every
-    iteration, to ulps — and 3+ orders of magnitude away from the
-    once-per-pair cadence (so the test discriminates the writeback
+    """The engine with bf16 ds == ops emulation rounding every
+    iteration, to ulps — and 3+ orders of magnitude away from rounding
+    every other iteration (so the test discriminates the writeback
     boundary, not just 'roughly lossy')."""
     orig, li, lm = _cube(shape)
     n = 5
     opts = SolverOptions(ndim=len(shape), iterations_fista=n,
-                         iterations_unacc=0, backend=Backend.PALLAS,
-                         temporal_pairs=False, lossy_duals=True)
+                         iterations_unacc=0, backend=Backend.JAX,
+                         lossy_duals=True)
     got = np.asarray(run_solver(orig, li, lm, opts)["recon"])
-    want = _emulate(orig, li, lm, n, round_every=1)
-    other = _emulate(orig, li, lm, n, round_every=2)
-    np.testing.assert_allclose(got, want, rtol=0, atol=5e-7)
-    assert float(np.max(np.abs(got - other))) > 1e-4
-
-
-@pytest.mark.parametrize("shape", [(8, 6, 64), (6, 4, 6, 16)])
-def test_pair_lossy_matches_k1_bitwise(shape):
-    """K=2 pair kernel under lossy mode quantizes iteration-1 duals to
-    the bf16 grid mid-pair (temporal.py::qd1), so it follows the SAME
-    per-iteration rounding cadence as K=1 — pair vs K=1 engine runs are
-    bitwise identical (the lossless pair≡K=1 guarantee extends to lossy
-    mode), and both sit at the every-iteration emulation, far from the
-    once-per-pair cadence."""
-    orig, li, lm = _cube(shape)
-    n = 6
-    base = dict(ndim=len(shape), iterations_fista=n, iterations_unacc=0,
-                backend=Backend.PALLAS, lossy_duals=True)
-    pair = run_solver(orig, li, lm,
-                      SolverOptions(**base, temporal_pairs=True))
-    k1 = run_solver(orig, li, lm,
-                    SolverOptions(**base, temporal_pairs=False))
-    np.testing.assert_array_equal(np.asarray(pair["recon"]),
-                                  np.asarray(k1["recon"]))
-    got = np.asarray(pair["recon"])
     want = _emulate(orig, li, lm, n, round_every=1)
     other = _emulate(orig, li, lm, n, round_every=2)
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-7)
@@ -116,10 +83,8 @@ def test_pair_lossy_matches_k1_bitwise(shape):
 
 def test_lossy_drift_envelope_and_denoising():
     """End-to-end: the mode is really lossy (nonzero drift) but the
-    drift stays bounded at the same order as the measured saturation
-    (6.8e-4 rel-L2 at EXPERIMENT_BF16_DUALS.json's config; ~4e-3 on
-    this smaller, noisier cube — drift is problem-dependent), and
-    denoising still denoises."""
+    drift stays bounded (~4e-3 rel-L2 on this small, noisy cube — drift
+    is problem-dependent), and denoising still denoises."""
     shape = (16, 12, 10, 10)
     rng = np.random.default_rng(3)
     clean = np.zeros(shape, np.float32)
@@ -128,7 +93,7 @@ def test_lossy_drift_envelope_and_denoising():
     li = jnp.asarray(np.full(4, 32.0, np.float32))
     lm = jnp.asarray(np.full(4, 1 / 32.0, np.float32))
     base = dict(ndim=4, iterations_fista=60, iterations_unacc=0,
-                backend=Backend.PALLAS, calculate_mse=True)
+                backend=Backend.JAX, calculate_mse=True)
     exact = run_solver(jnp.asarray(noisy), li, lm,
                        SolverOptions(**base),
                        reference_data=jnp.asarray(clean))
@@ -145,15 +110,14 @@ def test_lossy_drift_envelope_and_denoising():
 
 def test_lossy_chunk_invariance_and_checkpoint_roundtrip(tmp_path):
     """The CLAUDE.md state invariant under lossy mode: an ODD chunk
-    boundary re-anchors pair grouping ((0,1)(2,3),k1@4 | (5,6)(7,8) vs
-    (0,1)...(6,7),k1@8), which must not change the state now that the
-    rounding cadence is per-iteration in every path. The mid-run state
-    round-trips through an .npz checkpoint (bf16 ds stored as uint16 bit
-    patterns — np.savez alone would return unusable '|V2' voids)."""
+    boundary must not change the state, since the rounding cadence is
+    per-iteration. The mid-run state round-trips through an .npz
+    checkpoint (bf16 ds stored as uint16 bit patterns — np.savez alone
+    would return unusable '|V2' voids)."""
     orig, li, lm = _cube((8, 6, 64), seed=7)
     n = 9
     base = dict(ndim=3, iterations_fista=n, iterations_unacc=0,
-                backend=Backend.PALLAS, lossy_duals=True)
+                backend=Backend.JAX, lossy_duals=True)
     straight = run_solver(orig, li, lm, SolverOptions(**base))
 
     part = run_solver(orig, li, lm, SolverOptions(**base),
@@ -172,11 +136,10 @@ def test_lossy_chunk_invariance_and_checkpoint_roundtrip(tmp_path):
 
 
 def test_lossy_stop_aware_runs():
-    """Stop-aware lossy runs go through the guarded pair loop + exact
-    K=1 finisher without error and stop at a sane iteration."""
+    """Stop-aware lossy runs stop at a sane iteration."""
     orig, li, lm = _cube((8, 6, 64), seed=5)
     opts = SolverOptions(ndim=3, iterations_fista=40, iterations_unacc=0,
-                         backend=Backend.PALLAS, lossy_duals=True,
+                         backend=Backend.JAX, lossy_duals=True,
                          stopping_relative_change=3e-3)
     out = run_solver(orig, li, lm, opts)
     it = int(out["iterations_run"])
@@ -191,8 +154,8 @@ def test_lossy_validation():
     with pytest.raises(ValueError, match="Jia-Zhao"):
         SolverOptions(ndim=3, iterations_fista=4, iterations_unacc=0,
                       bc_mode=BCMode.MIRROR, lossy_duals=True)
-    # sharded lossy is SUPPORTED since round 5 (mesh ≡ single device
-    # bitwise; see the sharded tests below) — no mesh_axes rejection
+    # sharded lossy is supported (mesh ≡ single device; see the sharded
+    # tests below) — no mesh_axes rejection
     SolverOptions(ndim=3, iterations_fista=4, iterations_unacc=0,
                   mesh_axes=(0,), lossy_duals=True)
     # f64 data rejected at run time
@@ -213,23 +176,21 @@ def test_lossy_validation():
 
 
 @pytest.mark.parametrize("shard,shape,iters", [
-    ((4, 1, 1), (16, 6, 64), (6, 0)),       # axis-0 mesh, pair kernel
-    ((4, 1, 1), (16, 6, 64), (5, 0)),       # odd: pairs + K=1 mop-up
-    ((1, 4, 1), (6, 12, 64), (4, 0)),       # axis-1 mesh, pair kernel
-    ((2, 2, 1, 1), (8, 8, 6, 16), (4, 0)),  # 2D grid + pairfix strips
-    ((1, 1, 2, 2), (6, 6, 8, 8), (4, 0)),   # Q split, K=1 sharded path
+    ((4, 1, 1), (16, 6, 64), (6, 0)),       # axis-0 mesh
+    ((4, 1, 1), (16, 6, 64), (5, 0)),       # odd iteration count
+    ((1, 4, 1), (6, 12, 64), (4, 0)),       # axis-1 mesh
+    ((2, 2, 1, 1), (8, 8, 6, 16), (4, 0)),  # 2D scan grid
+    ((1, 1, 2, 2), (6, 6, 8, 8), (4, 0)),   # Q split
 ])
 def test_sharded_lossy_matches_single_device(shard, shape, iters):
     """Lossy mesh ≡ lossy single device at the exact-mode seam tolerance
-    (ulp-level; the seam recomputes quantize to the same bf16 grid the
-    owning shard does — kernels/temporal.py qd1 on s_d1n0, pairfix
-    d_store cadence, widened-exactly d halo slabs)."""
+    (ulp-level: every shard rounds its own d on the same cadence)."""
     from cytvdn_tpu.parallel.sharded import run_sharded
 
     orig, li, lm = _cube(shape, seed=11)
     opts = SolverOptions(ndim=len(shape), iterations_fista=iters[0],
                          iterations_unacc=iters[1],
-                         backend=Backend.PALLAS, lossy_duals=True)
+                         backend=Backend.JAX, lossy_duals=True)
     single = run_solver(orig, li, lm, opts)
     got = run_sharded(np.asarray(orig), np.asarray(li), np.asarray(lm),
                       opts, shard=shard, keep_state=True)
@@ -245,22 +206,20 @@ def test_sharded_lossy_matches_single_device(shard, shape, iters):
                        SolverOptions(ndim=len(shape),
                                      iterations_fista=iters[0],
                                      iterations_unacc=iters[1],
-                                     backend=Backend.PALLAS))
+                                     backend=Backend.JAX))
     if iters[0] >= 4:
         assert float(np.max(np.abs(np.asarray(got["recon"])
                                    - np.asarray(exact["recon"])))) > 1e-6
 
 
 def test_sharded_lossy_k1_matches_single_device():
-    """The K=1 sharded path (temporal_pairs off) under lossy mode: the
-    bf16 d slab ppermutes + exact widening must reproduce the
-    single-device K=1 lossy run."""
+    """A 5-iteration axis-0 mesh run under lossy mode reproduces the
+    single-device lossy run."""
     from cytvdn_tpu.parallel.sharded import run_sharded
 
     orig, li, lm = _cube((16, 6, 64), seed=13)
     opts = SolverOptions(ndim=3, iterations_fista=5, iterations_unacc=0,
-                         backend=Backend.PALLAS, lossy_duals=True,
-                         temporal_pairs=False)
+                         backend=Backend.JAX, lossy_duals=True)
     single = run_solver(orig, li, lm, opts)
     got = run_sharded(np.asarray(orig), np.asarray(li), np.asarray(lm),
                       opts, shard=(4, 1, 1))
@@ -277,7 +236,7 @@ def test_sharded_lossy_checkpoint_resume(tmp_path):
 
     orig, li, lm = _cube((16, 6, 64), seed=17)
     opts = SolverOptions(ndim=3, iterations_fista=8, iterations_unacc=0,
-                         backend=Backend.PALLAS, lossy_duals=True)
+                         backend=Backend.JAX, lossy_duals=True)
     straight = run_sharded(np.asarray(orig), np.asarray(li),
                            np.asarray(lm), opts, shard=(4, 1, 1))
     part = run_sharded(np.asarray(orig), np.asarray(li), np.asarray(lm),
@@ -301,7 +260,7 @@ def test_outofcore_lossy_matches_incore(temporal_k, shard_w):
     """Out-of-core lossy runs (streaming, temporal-blocked, and
     slab-sharded) equal the in-core lossy run — the same equivalence the
     exact mode carries, now with bf16 host-resident duals (half the d
-    arrays' host RAM and PCIe bytes)."""
+    arrays' host RAM and transfer bytes)."""
     from cytvdn_tpu.solver.outofcore import denoise_outofcore
 
     shape = (12, 8, 64)
@@ -315,7 +274,7 @@ def test_outofcore_lossy_matches_incore(temporal_k, shard_w):
     li = jnp.asarray(16.0 / mu)
     lm = jnp.asarray((mu / 16.0) / mu)
     opts = SolverOptions(ndim=3, iterations_fista=n, iterations_unacc=0,
-                         backend=Backend.PALLAS, lossy_duals=True)
+                         backend=Backend.JAX, lossy_duals=True)
     want = run_solver(jnp.asarray(cube), li, lm, opts)
     tol = dict(rtol=0, atol=0) if shard_w == 1 \
         else dict(rtol=5e-7, atol=1e-7)  # sharded seam-recompute ulps
@@ -384,44 +343,3 @@ def test_lossy_api_surface():
             FISTA=True, lossy_duals=True, quiet=False)
     assert any("lossy_duals" in str(x.message) for x in w)
     assert np.all(np.isfinite(recon))
-
-
-def test_round_bf16_canary():
-    """The in-kernel per-iteration quantizer (kernels/temporal.py::
-    round_bf16, integer-bit RNE) must bit-match the hardware f32->bf16
-    convert + exact widen that the K=1 kernel's HBM writeback performs —
-    checked against numpy's own convert round-trip (host-side, immune to
-    compiler excess-precision folding), INCLUDING under jit. This is the
-    canary for the failure mode where a compiled down-up convert pair is
-    folded to a no-op: if the quantizer ever becomes an identity under
-    jit, the torture values below catch it."""
-    from cytvdn_tpu.kernels.temporal import round_bf16
-
-    torture = np.array([
-        0.0, -0.0, 1.0, -1.0,
-        1.0 + 2.0 ** -9,            # exact tie, even stays
-        1.0 + 3.0 * 2.0 ** -9,      # exact tie, odd rounds up
-        1.0 + 2.0 ** -9 + 2.0 ** -20,   # just above tie
-        np.float32(np.pi), -np.float32(np.e),
-        1e-38, -1e-38, 1.1754944e-38,   # near/below f32 normal min
-        1e-41, -3e-44,                  # f32 denormals
-        3.3895314e38,                   # rounds up within range
-        3.39e38, -3.39e38,              # carry to bf16 infinity
-        65535.5, 65504.0, 2.0 ** 127,
-        np.finfo(np.float32).max, np.finfo(np.float32).tiny,
-    ], dtype=np.float32)
-    rng = np.random.default_rng(7)
-    rand = (rng.standard_normal(4096) *
-            np.exp(rng.uniform(-30, 30, 4096))).astype(np.float32)
-    x = np.concatenate([torture, rand])
-
-    want = x.astype(jnp.bfloat16).astype(np.float32)
-    for fn in (round_bf16, jax.jit(round_bf16)):
-        got = np.asarray(fn(jnp.asarray(x)))
-        assert np.array_equal(got, want), (
-            "round_bf16 diverges from the hardware convert round-trip: "
-            f"{x[got != want][:5]} -> {got[got != want][:5]} "
-            f"(want {want[got != want][:5]})")
-    # the canary proper: rounding must actually happen under jit
-    assert not np.array_equal(
-        np.asarray(jax.jit(round_bf16)(jnp.asarray(rand))), rand)

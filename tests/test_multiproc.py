@@ -1,6 +1,6 @@
 """True multi-process distributed tests: N real processes joined by
 jax.distributed over localhost (gloo collectives) — the same code path a
-multi-host TPU pod takes over DCN, minus the hardware.
+multi-host GPU cluster takes, minus the hardware.
 
 These spawn subprocesses via tools/multiproc_e2e.py; the in-process mesh
 tests (tests/test_sharded.py) cover the numerics, these cover the
@@ -56,12 +56,12 @@ def test_two_process_checkpoint_kill_resume():
 
 @pytest.mark.slow
 def test_two_process_temporal_pairs_axis0_mesh():
-    """The K=2 pair kernel's 2-row halo bands ppermute across a real
-    process boundary (axis-0 mesh spanning both processes)."""
-    out = _run(["--pairs"], 23000 + os.getpid() % 9000)
+    """Halos ppermute across a real process boundary: an axis-0 mesh
+    spanning both processes puts a shard seam between them."""
+    out = _run(["--axis0"], 23000 + os.getpid() % 9000)
     assert out["multiproc_e2e"] == "ok"
     assert out["rel_err"] < 1e-6
-    assert out["temporal_pairs_mesh"] is True
+    assert out["shard"] == "8,1,1,1"
 
 
 OOC_TOOL = os.path.join(os.path.dirname(os.path.dirname(__file__)),

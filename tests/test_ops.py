@@ -208,9 +208,12 @@ def test_perf_model():
     from cytvdn_tpu.utils.perf import (efficiency, speed_of_light,
                                        traversals_per_iteration)
 
-    assert traversals_per_iteration(4, True, "fused") == 19
-    assert traversals_per_iteration(4, False, "fused") == 11
+    assert traversals_per_iteration(4, True, "one_pass") == 19
+    assert traversals_per_iteration(4, False, "one_pass") == 11
+    assert traversals_per_iteration(4, True, "two_pass") == 24
+    assert traversals_per_iteration(3, True, "two_pass") == 19
     assert traversals_per_iteration(4, True, "reference") == 22
-    sol = speed_of_light((128, 128, 128, 128))
-    assert 1e9 < sol < 2e10
-    assert 0 < efficiency(5.1e9, (128,) * 4) < 1
+    h100 = "NVIDIA H100 80GB HBM3"
+    sol = speed_of_light((128, 128, 128, 128), h100)
+    assert sol == 3.35e12 / (19 * 4)
+    assert 0 < efficiency(5.1e9, (128,) * 4, h100) < 1

@@ -27,7 +27,7 @@ def test_outofcore_matches_incore_4d(n_slabs, fista):
     cube = _cube((10, 6, 8, 16))
     mu = np.full(4, 1.0, np.float32)
     want = denoise4D(cube, mu, iterations=5, FISTA=fista, quiet=True,
-                     backend="pallas")
+                     backend="jax")
     got = denoise_outofcore(cube, mu, iterations=5, FISTA=fista,
                             n_slabs=n_slabs)
     for g, w in zip(got, want):
@@ -39,7 +39,7 @@ def test_outofcore_matches_incore_3d_early_stop():
     mu = np.full(3, 1.0, np.float32)
     kw = dict(iterations=60, FISTA=False, stopping_relative_change=0.05,
               quiet=True)
-    want = denoise3D(cube, mu, backend="pallas", **kw)
+    want = denoise3D(cube, mu, backend="jax", **kw)
     got = denoise_outofcore(cube, mu, iterations=60, FISTA=False,
                             stopping_relative_change=0.05, n_slabs=3)
     for g, w in zip(got, want):
@@ -55,7 +55,7 @@ def test_outofcore_mse_matches_incore(fista):
     ref = _cube((10, 6, 8, 16))
     mu = np.full(4, 1.0, np.float32)
     want = denoise4D(cube, mu, iterations=5, FISTA=fista, quiet=True,
-                     backend="pallas", reference_data=ref)
+                     backend="jax", reference_data=ref)
     got = denoise_outofcore(cube, mu, iterations=5, FISTA=fista,
                             n_slabs=3, reference_data=ref)
     assert len(got) == 4
@@ -71,7 +71,7 @@ def test_outofcore_mse_temporal_sweep_final():
     ref = _cube((12, 8, 16))
     mu = np.full(3, 1.0, np.float32)
     want = denoise3D(cube, mu, iterations=6, FISTA=False, quiet=True,
-                     backend="pallas", reference_data=ref)
+                     backend="jax", reference_data=ref)
     got = denoise_outofcore(cube, mu, iterations=6, FISTA=False,
                             n_slabs=2, temporal_k=3, reference_data=ref)
     assert len(got) == 4
@@ -89,7 +89,7 @@ def test_outofcore_mse_sharded_temporal():
     ref = _cube((12, 8, 16))
     mu = np.full(3, 1.0, np.float32)
     want = denoise3D(cube, mu, iterations=4, FISTA=True, quiet=True,
-                     backend="pallas", reference_data=ref)
+                     backend="jax", reference_data=ref)
     got = denoise_outofcore(cube, mu, iterations=4, FISTA=True,
                             n_slabs=2, temporal_k=2, shard_w=2,
                             reference_data=ref)
@@ -326,7 +326,7 @@ def test_temporal_blocking_matches_incore(n_slabs, k, fista):
     mu = np.full(4, 1.0, np.float32)
     n_it = 7  # not a multiple of k: exercises the short trailing sweep
     want = denoise4D(cube, mu, iterations=n_it, FISTA=fista, quiet=True,
-                     backend="pallas")
+                     backend="jax")
     got = denoise_outofcore(cube, mu, iterations=n_it, FISTA=fista,
                             n_slabs=n_slabs, temporal_k=k)
     np.testing.assert_allclose(got[0], want[0], rtol=2e-6, atol=2e-6)
@@ -345,7 +345,7 @@ def test_temporal_blocking_hybrid_schedule():
     cube = _cube((9, 6, 8, 16))
     mu = np.full(4, 1.0, np.float32)
     want = denoise4D(cube, mu, iterations=(5, 4), quiet=True,
-                     backend="pallas")
+                     backend="jax")
     got = denoise_outofcore(cube, mu, iterations=(5, 4), n_slabs=2,
                             temporal_k=3)
     np.testing.assert_allclose(got[0], want[0], rtol=2e-6, atol=2e-6)
@@ -364,7 +364,7 @@ def test_sharded_outofcore_matches_incore(n_slabs, k, w, iters):
     mu = np.full(4, 1.0, np.float32)
     lam = mu / 32.0
     want = denoise4D(cube, mu, iterations=iters, quiet=True,
-                     backend="pallas")
+                     backend="jax")
     n_f, n_u = normalize_iterations(iters, True)
     opts = SolverOptions(ndim=4, iterations_fista=n_f,
                          iterations_unacc=n_u)
@@ -425,7 +425,7 @@ def test_sharded_outofcore_fuzz(seed):
     lam = mu / (32.0 if ndim == 4 else 16.0)
     denoise = denoise4D if ndim == 4 else denoise3D
     want = denoise(cube, mu, iterations=(n_f, n_u), FISTA=n_f > 0,
-                   quiet=True, backend="pallas")
+                   quiet=True, backend="jax")
     opts = SolverOptions(ndim=ndim, iterations_fista=n_f,
                          iterations_unacc=n_u)
     out = solve_outofcore_sharded_temporal(

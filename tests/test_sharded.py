@@ -127,13 +127,10 @@ def test_resolve_shard_and_partitioner():
     assert grid == (2, 2)
     with pytest.raises(ValueError):
         resolve_shard((3, 1, 1), (8, 8, 8), 8)  # non-divisible
-    # pair-eligible runs prefer an axis-0-only split (unlocks the K=2
-    # temporal kernel) when axis 0 tiles evenly with >= 4 rows/shard
-    assert resolve_shard("auto", (128, 64, 32, 32), 8,
-                         prefer_axis0=True) == (8, 1, 1, 1)
-    # < 4 rows per shard: falls back to the 2D scan grid
-    got = resolve_shard("auto", (16, 64, 32, 32), 8, prefer_axis0=True)
-    assert got != (8, 1, 1, 1) and np.prod(got) == 8
+    # 'auto' always splits the two scan axes only, over all devices
+    got = resolve_shard("auto", (16, 64, 32, 32), 8)
+    assert got[2:] == (1, 1) and np.prod(got) == 8
+    assert resolve_shard(None, (8, 8, 8), 8) == (1, 1, 1)
 
 
 def test_auto_shard_falls_back_on_indivisible_extents():

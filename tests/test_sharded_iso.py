@@ -1,25 +1,20 @@
-"""Fused-kernel sharded half-isotropic runs (round 5).
+"""Sharded half-isotropic runs.
 
 The reference has NO distributed iso at all (reference README.md:25-26 —
-its MPI path is anisotropic-only); rounds 1-4 supported sharded iso
-through the XLA ops path at a measured 1.30x/shard cost (ISO_GAP.json).
-Round 5 adds the joint-projection shard-seam recompute to the fused
-Pallas kernel (partner-acc halo slabs; diagonal recon corners when both
-pair axes are split), so every mesh shape rides the fused kernel.
+its MPI path is anisotropic-only). Here the joint L2 projection runs on
+a mesh through the same ops-path engine as the single-device run, with
+the operand halos of ``parallel/halo.py`` at every split pair axis.
 
-Every test asserts mesh == single device at the fused-path seam
-tolerance, and that the fused path is actually engaged (the gate in
-solver/engine._resolve_fused no longer drops split-iso-axes meshes).
+Every test asserts mesh == single device at the seam tolerance.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import cytvdn_tpu.kernels.fused as F
-from cytvdn_tpu.config import Backend, BCMode, SolverOptions
+from cytvdn_tpu.config import Backend, SolverOptions
 from cytvdn_tpu.parallel.sharded import run_sharded
-from cytvdn_tpu.solver.engine import _resolve_fused, run_solver
+from cytvdn_tpu.solver.engine import run_solver
 
 RNG = np.random.default_rng(7)
 
@@ -38,17 +33,10 @@ def _check(shape, shard, opts_kw, rtol=2e-6, atol=2e-7):
     cube = _cube(shape)
     li, lm = _params(4)
     base = SolverOptions(ndim=4, **opts_kw)
-    opts_j = SolverOptions(**{**base.__dict__, "backend": Backend.JAX})
-    opts_p = SolverOptions(**{**base.__dict__, "backend": Backend.PALLAS})
-    # the fused path must actually engage for this mesh (gate removed)
-    comm = type("C", (), {"split_axes": tuple(
-        ax for ax, w in enumerate(shard) if w > 1)})()
-    local = tuple(e // w for e, w in zip(shape, shard))
-    assert _resolve_fused(opts_p, local, jnp.float32, comm)[0], \
-        f"fused path gated off for shard {shard}"
+    opts = SolverOptions(**{**base.__dict__, "backend": Backend.JAX})
     single = run_solver(jnp.asarray(cube), jnp.asarray(li),
-                        jnp.asarray(lm), opts_j)
-    got = run_sharded(cube, li, lm, opts_p, shard=shard)
+                        jnp.asarray(lm), opts)
+    got = run_sharded(cube, li, lm, opts, shard=shard)
     np.testing.assert_allclose(
         np.asarray(got["recon"]), np.asarray(single["recon"]),
         rtol=rtol, atol=atol, err_msg=f"shard {shard}")
@@ -64,18 +52,18 @@ FISTA = dict(iterations_fista=4, iterations_unacc=0, isotropic_R=True)
 
 
 @pytest.mark.parametrize("shard", [
-    (4, 1, 1, 1),   # axis 0 split: +0 joint recompute, no corner
-    (1, 4, 1, 1),   # axis 1 split: +1 joint recompute, no corner
-    (2, 2, 1, 1),   # both pair axes split: diagonal corners engaged
+    (4, 1, 1, 1),   # axis 0 split
+    (1, 4, 1, 1),   # axis 1 split
+    (2, 2, 1, 1),   # both pair axes split
 ])
 def test_iso_r_fused_sharded(shard):
     _check((8, 8, 6, 16), shard, FISTA)
 
 
 @pytest.mark.parametrize("shard", [
-    (1, 1, 4, 1),   # Q pair, axis 2 split (in-block slab recompute)
+    (1, 1, 4, 1),   # Q pair, axis 2 split
     (1, 1, 1, 4),   # Q pair, axis 3 split
-    (1, 1, 2, 2),   # both Q axes split: in-block corners engaged
+    (1, 1, 2, 2),   # both Q axes split
 ])
 def test_iso_q_fused_sharded(shard):
     _check((6, 6, 8, 16), shard,
@@ -83,12 +71,12 @@ def test_iso_q_fused_sharded(shard):
 
 
 def test_iso_rq_fused_sharded_mixed_grid():
-    # both pairs iso, splits touching one axis of each pair + a 3-way
-    # hybrid schedule (FISTA then unaccelerated — both recompute forms)
+    # both pairs iso, splits touching one axis of each pair + a hybrid
+    # schedule (FISTA then unaccelerated)
     _check((8, 6, 8, 16), (2, 1, 2, 1),
            dict(iterations_fista=3, iterations_unacc=2,
                 isotropic_R=True, isotropic_Q=True))
-    # corners on the R pair simultaneously with a split Q axis
+    # both R axes split simultaneously with a split Q axis
     _check((8, 8, 8, 16), (2, 2, 2, 1),
            dict(iterations_fista=3, iterations_unacc=0,
                 isotropic_R=True, isotropic_Q=True))
@@ -100,16 +88,10 @@ def test_iso_r_unaccelerated_sharded():
                 isotropic_R=True))
 
 
-def test_iso_r_sharded_multistrip(monkeypatch):
-    """Small blocks force multiple axis-1 strips per shard, so the
-    intra-strip iso seam recompute runs WITH axis-0 shard halos — the
-    prev0_seam path (the -0 shard's last row read through the
-    pre-gathered prev0 halo columns instead of the JZ zero mask)."""
-    monkeypatch.setattr(F, "_BLOCK_BYTES_TARGET", 800)
+def test_iso_r_sharded_multistrip():
+    """Two-row shards: every row of a shard is next to a seam, so both
+    halo directions feed the joint projection on every row."""
     shape = (8, 8, 4, 8)
-    local = (2, 8, 4, 8)
-    plan = F._plan(local, 4)
-    assert plan is not None and plan[4] < 8, "blocks did not shrink"
     _check(shape, (4, 1, 1, 1), FISTA)
     _check(shape, (2, 2, 1, 1), FISTA)
 
@@ -124,11 +106,10 @@ def test_iso_r_sharded_early_stop_and_mse():
     kw = dict(ndim=4, iterations_fista=40, iterations_unacc=0,
               isotropic_R=True, isotropic_Q=True,
               stopping_relative_change=0.02, calculate_mse=True)
-    opts_j = SolverOptions(**kw, backend=Backend.JAX)
-    opts_p = SolverOptions(**kw, backend=Backend.PALLAS)
+    opts = SolverOptions(**kw, backend=Backend.JAX)
     single = run_solver(jnp.asarray(cube), jnp.asarray(li),
-                        jnp.asarray(lm), opts_j, jnp.asarray(ref))
-    got = run_sharded(cube, li, lm, opts_p, reference_data=ref,
+                        jnp.asarray(lm), opts, jnp.asarray(ref))
+    got = run_sharded(cube, li, lm, opts, reference_data=ref,
                       shard=(2, 2, 1, 1))
     assert int(got["iterations_run"]) == int(single["iterations_run"])
     np.testing.assert_allclose(np.asarray(got["recon"]),

@@ -11,14 +11,15 @@
   cyTVDN/mpi.py:444-498). Wire bytes: ZERO. The run also times the
   HDF5 token-ring fallback (``CYTV_NO_RAW_WRITES=1`` — serialized by
   process): on one host the two coincide (page-cache memcpy on shared
-  cores), on a pod the ring's writer wall is sum-of-processes while the
+  cores), on a cluster the ring's writer wall is sum-of-processes while the
   raw path's is max-of-processes.
 
 Spawns N real processes (jax.distributed over localhost, gloo), times
 both writers on the same data, and appends an ``output_bench`` row to
-MULTIHOST_OOC.json. On one host the wire advantage cannot show (loopback
-≈ memcpy), so the row also records the analytic DCN-byte counts at the
-config-5 geometry — the quantity that separates the paths on a pod.
+the ``--artifact`` JSON file. On one host the wire advantage cannot show
+(loopback ≈ memcpy), so the row also records the analytic network-byte
+counts at the config-5 geometry — the quantity that separates the paths
+on a cluster.
 """
 
 import argparse
@@ -145,15 +146,15 @@ def parent(args) -> int:
             t["proc0_gather_s"] / t["concurrent_row_writes_s"], 2),
         "wire_bytes_gather_this_shape": cube_b * args.nproc,
         "wire_bytes_concurrent": 0,
-        "note": ("same-host measurement (loopback ≈ memcpy) — on a pod "
-                 "the gather additionally pays DCN for ~nproc x cube "
+        "note": ("same-host measurement (loopback ≈ memcpy) — on a "
+                 "cluster the gather additionally pays network bytes for ~nproc x cube "
                  f"({args.nproc * cfg5_bytes / 2**30:.0f} GiB at the "
                  "config-5 geometry over 4 hosts) while the concurrent "
                  "writer pays zero; raw-offset pwrite writers run truly "
                  "concurrently (writer wall = max over processes) where "
                  "the token-ring fallback serializes (sum over "
                  "processes) — indistinguishable on one shared-core "
-                 "host, ~nproc x apart on a pod; CLI auto-selects "
+                 "host, ~nproc x apart on a cluster; CLI auto-selects "
                  "concurrent when the output filesystem is shared "
                  "(reference MPI-IO precondition, mpi.py:115,447)"),
     }

@@ -1,11 +1,11 @@
 """True multi-process end-to-end exercise of the distributed stack.
 
 The reference's distributed story is exercised by running real MPI ranks
-(reference local_MPI_example.sh:11-20); the TPU-native equivalent is N
-Python processes joined by ``jax.distributed`` — here N=2 processes x 4
-virtual CPU devices each, collectives over gloo, which is exactly the
-multi-host code path a TPU pod takes (DCN process group + global mesh),
-minus the hardware.
+(reference local_MPI_example.sh:11-20); the JAX equivalent is N Python
+processes joined by ``jax.distributed`` — here N=2 processes x 4 virtual
+CPU devices each, collectives over gloo, which is exactly the multi-host
+code path a GPU cluster takes (process group + global mesh), minus the
+hardware.
 
 What one run covers, end to end:
 
@@ -77,12 +77,9 @@ def child(args) -> int:
         "-m", str(MU), "-n", str(ITERS[0]), str(ITERS[1]), "-f", "1",
         "-v", "1",
     ]
-    if args.pairs:
-        # axis-0 mesh + forced Pallas (interpret on CPU): the K=2 pair
-        # kernel's 2-row halo bands ppermute ACROSS the process boundary
-        argv += ["--shard", "8,1,1,1", "--backend", "pallas"]
-    else:
-        argv += ["--shard", SHARD]
+    # an axis-0 mesh puts a shard seam ON the process boundary: the
+    # one-row halos ppermute across it
+    argv += ["--shard", "8,1,1,1" if args.axis0 else SHARD]
     if args.checkpoint:
         argv += ["--checkpoint", f"{work}/state.ck",
                  "--checkpoint-every", "2", "--resume", "1"]
@@ -132,7 +129,7 @@ def parent(args) -> int:
              "--port", str(port), "--workdir", work,
              "--local-devices", str(8 // args.nproc)]
             + (["--checkpoint"] if args.checkpoint else [])
-            + (["--pairs"] if args.pairs else []),
+            + (["--axis0"] if args.axis0 else []),
             env=env,
         ) for pid in range(args.nproc)]
 
@@ -141,7 +138,7 @@ def parent(args) -> int:
     if args.checkpoint:
         # pass 1: run until the first multi-process checkpoint generation
         # (master + all parts) is on disk, then kill every child — the
-        # "crashed pod job" the reference cannot recover from (SURVEY §5)
+        # "crashed cluster job" the reference cannot recover from (SURVEY §5)
         import time
 
         procs = spawn(args.port)
@@ -178,12 +175,11 @@ def parent(args) -> int:
         "multiproc_e2e": "ok" if rel < 1e-6 else "FAIL",
         "nproc": args.nproc,
         "global_devices": 8,
-        "shard": "8,1,1,1" if args.pairs else SHARD,
+        "shard": "8,1,1,1" if args.axis0 else SHARD,
         "max_abs_err_vs_single_process": err,
         "rel_err": rel,
         "leftover_part_files": parts,
         "checkpoint_cycle": bool(args.checkpoint),
-        "temporal_pairs_mesh": bool(args.pairs),
         "interrupted_mid_run": interrupted,
     }
     print(json.dumps(result))
@@ -211,9 +207,9 @@ def build_parser():
     p.add_argument("--local-devices", type=int, default=4)
     p.add_argument("--checkpoint", action="store_true",
                    help="exercise chunked checkpointed execution")
-    p.add_argument("--pairs", action="store_true",
-                   help="exercise the K=2 pair kernel over an axis-0 "
-                        "mesh spanning both processes")
+    p.add_argument("--axis0", action="store_true",
+                   help="split axis 0 over all 8 devices, so a shard "
+                        "seam lies on the process boundary")
     p.add_argument("--keep", default=None, metavar="WORKDIR",
                    help="use (and keep) WORKDIR instead of a temp dir")
     p.add_argument("--artifact", default=None, metavar="JSON",

@@ -1,5 +1,5 @@
 """Multi-host out-of-core e2e: N real processes (jax.distributed over
-localhost, gloo — the same path a pod takes over DCN), each owning an
+localhost, gloo — the same path a cluster takes over its network), each owning an
 axis-0 row range of the host-resident state and streaming its own slabs
 while sharding each resident slab over its local virtual devices.
 
@@ -63,7 +63,7 @@ def child(args) -> int:
     if args.cli:
         # the CLI joins the runtime itself (init_distributed), reads only
         # its own rows lazily from the EMD, and process 0 writes the one
-        # output file — the full `cytv --out-of-core` pod launch
+        # output file — the full `cytv --out-of-core` multi-host launch
         os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{args.port}"
         os.environ["JAX_NUM_PROCESSES"] = str(args.nproc)
         os.environ["JAX_PROCESS_ID"] = str(args.pid)
@@ -98,7 +98,7 @@ def child(args) -> int:
         if args.die_after_save:
             # kill THIS process right after a full checkpoint generation
             # at/after --die-at-iter exists everywhere (the hook runs
-            # post-barrier) — a real crashed-pod cycle, not a simulated
+            # post-barrier) — a real crashed-process cycle, not a simulated
             # one. --die-at-iter > first lets the resume pass make
             # progress before the SECOND kill (double-kill cycles).
             die_at = args.die_at_iter
@@ -191,7 +191,7 @@ def parent(args) -> int:
         ) for pid in range(args.nproc)]
 
     def kill_pass(victim, die_at_iter):
-        """One crashed-pod cycle: the victim os._exit(17)s right after
+        """One crashed-process cycle: the victim os._exit(17)s right after
         the first complete checkpoint generation at/after die_at_iter;
         the other ranks exit 18 at the same generation (launcher
         teardown after a rank loss)."""
